@@ -1,0 +1,22 @@
+"""Mamba2-2.7B: attention-free SSD. [arXiv:2405.21060; unverified]"""
+
+from ..models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="mamba2-2.7b",
+    family="ssm",
+    num_layers=64,
+    d_model=2560,
+    num_heads=0,
+    num_kv_heads=0,
+    d_ff=0,
+    vocab_size=50280,
+    ssm_state=128,
+    ssm_head_dim=64,
+    ssm_expand=2,
+    ssm_chunk=128,
+    tie_embeddings=True,
+)
+
+SMOKE = CONFIG.scaled(num_layers=2, d_model=128, vocab_size=256,
+                      ssm_state=16, ssm_head_dim=32, ssm_chunk=16)

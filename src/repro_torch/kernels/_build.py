@@ -1,0 +1,101 @@
+"""Build the CUDA sources in `repro_torch/csrc/` with nvcc and load them
+with ctypes.
+
+Each `csrc/<name>.cu` exposes a plain C interface and becomes
+`build/torch_kernels/lib<name>.so` under the checkout root, compiled for
+`sm_90a` at first use on a CUDA tensor (never at import).  `build_all`
+starts one nvcc per source, all at once.  A failed build raises with
+nvcc's stderr.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# what the kernels are compiled for (see the dispatch in each .cu)
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (16, 32, 64, 96, 112, 128, 256)
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home and (Path(home) / "bin" / "nvcc").exists():
+        return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not Path(found).exists():
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    return found
+
+
+def sources() -> list[str]:
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def _lib_path(name: str) -> Path:
+    return BUILD_DIR / f"lib{name}.so"
+
+
+def _stale(name: str) -> bool:
+    lib = _lib_path(name)
+    return (not lib.exists()
+            or lib.stat().st_mtime < (CSRC / f"{name}.cu").stat().st_mtime)
+
+
+def build_all(names: list[str] | None = None) -> dict[str, str]:
+    """Compile every stale source in parallel; returns {name: ptxas log}."""
+    names = sources() if names is None else names
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    for name in names:
+        if not _stale(name):
+            continue
+        tmp = BUILD_DIR / f"lib{name}.{os.getpid()}.tmp.so"
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    logs, failed = {}, []
+    for name, (tmp, proc) in procs.items():
+        out, err = proc.communicate()
+        logs[name] = out + err
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {name}.cu "
+                          f"(exit {proc.returncode}):\n{err}")
+        else:
+            os.replace(tmp, _lib_path(name))   # atomic against other builders
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return logs
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for `csrc/<name>.cu`, built first if stale."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        if _stale(name):
+            build_all([name])
+        lib = ctypes.CDLL(str(_lib_path(name)))
+        _LIBS[name] = lib
+    return lib
+
+
+def check(lib: ctypes.CDLL, status: int, what: str) -> None:
+    """Raise on a nonzero cudaError_t returned by a launch function."""
+    if status != 0:
+        lib.repro_cuda_error_string.restype = ctypes.c_char_p
+        lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+        msg = lib.repro_cuda_error_string(status).decode()
+        raise RuntimeError(f"{what}: CUDA error {status} ({msg})")

@@ -1,0 +1,7 @@
+"""PyTorch model library (dense family); mirrors `repro.models`."""
+
+from .config import ModelConfig
+from .model import decode_step, forward, init_cache, init_params, prefill
+
+__all__ = ["ModelConfig", "decode_step", "forward", "init_cache",
+           "init_params", "prefill"]

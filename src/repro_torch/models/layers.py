@@ -1,0 +1,213 @@
+"""Building-block layers in PyTorch; a port of `repro/models/layers.py`.
+
+Parameters are plain dicts of tensors with the reference's names and
+layout (matmul weights stored (in, out)).  Every layer is an `init_*`
+function drawing from a `torch.Generator` and an apply function.
+`cfg.attn_impl == "pallas"` routes attention through the hand-written
+kernels (`repro_torch.kernels`); "xla" is the eager path, the counterpart
+of the reference's XLA branch.  Single device: no sharding hooks.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from .config import ModelConfig
+
+# ---------------------------------------------------------------------------
+# init helpers
+# ---------------------------------------------------------------------------
+
+
+def _trunc_normal(gen, shape, std, dtype, device):
+    x = torch.empty(shape, dtype=torch.float32, device=device)
+    torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return (x * std).to(dtype)
+
+
+def dense_init(gen, shape, in_axis: int = 0, dtype=torch.float32,
+               device="cpu"):
+    return _trunc_normal(gen, shape, 1.0 / math.sqrt(shape[in_axis]), dtype,
+                         device)
+
+
+def embed_init(gen, shape, dtype=torch.float32, device="cpu",
+               std: float = 0.02):
+    return _trunc_normal(gen, shape, std, dtype, device)
+
+
+# ---------------------------------------------------------------------------
+# norms / projections
+# ---------------------------------------------------------------------------
+
+
+def init_rmsnorm(d: int, device="cpu", layers: tuple = ()):
+    return {"scale": torch.ones(layers + (d,), dtype=torch.float32,
+                                device=device)}
+
+
+def rms_norm(params, x: torch.Tensor, eps: float) -> torch.Tensor:
+    x32 = x.float()
+    var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * params["scale"]).to(x.dtype)
+
+
+def linear(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return x @ w.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# rotary embeddings
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(head_dim: int, theta: float, device="cpu") -> torch.Tensor:
+    idx = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device)
+    return 1.0 / (theta ** (idx / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, H, hd); positions: (..., S).  Rotates split halves."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    angles = positions[..., :, None].float() * freqs
+    cos = torch.cos(angles)[..., :, None, :]
+    sin = torch.sin(angles)[..., :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention (GQA, causal, optional sliding window)
+# ---------------------------------------------------------------------------
+
+
+def init_attention(gen, cfg: ModelConfig, dtype, device="cpu",
+                   layers: tuple = ()):
+    D = cfg.d_model
+    H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    return {
+        "wq": dense_init(gen, layers + (D, H * hd), len(layers), dtype,
+                         device),
+        "wk": dense_init(gen, layers + (D, Hkv * hd), len(layers), dtype,
+                         device),
+        "wv": dense_init(gen, layers + (D, Hkv * hd), len(layers), dtype,
+                         device),
+        "wo": dense_init(gen, layers + (H * hd, D), len(layers), dtype,
+                         device),
+    }
+
+
+def _check_attn_impl(cfg: ModelConfig) -> None:
+    if cfg.attn_impl not in ("xla", "pallas"):
+        raise NotImplementedError(
+            f"attn_impl={cfg.attn_impl!r} is not ported yet; "
+            "this slice has 'xla' (eager) and 'pallas' (CUDA kernels)")
+
+
+def attention(params, x: torch.Tensor, cfg: ModelConfig,
+              positions: torch.Tensor, window: int = 0) -> torch.Tensor:
+    """Causal self-attention over the full sequence (train / prefill)."""
+    _check_attn_impl(cfg)
+    B, S, D = x.shape
+    H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    rep = H // Hkv
+    q = linear(params["wq"], x).reshape(B, S, H, hd)
+    k = linear(params["wk"], x).reshape(B, S, Hkv, hd)
+    v = linear(params["wv"], x).reshape(B, S, Hkv, hd)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+
+    if cfg.attn_impl == "pallas":
+        from ..kernels.flash_attention import ops as fa_ops
+        o = fa_ops.flash_attention(q, k, v, causal=True, window=window)
+        o = o.reshape(B, S, H * hd)
+    else:
+        q = q.reshape(B, S, Hkv, rep, hd)
+        scale = 1.0 / math.sqrt(hd)
+        scores = torch.einsum("bshrd,bthd->bhrst", q, k) * scale
+        ii = positions[:, :, None]                          # (B,S,1)
+        jj = positions[:, None, :]                          # (B,1,T)
+        mask = jj <= ii
+        if window:
+            mask &= jj > ii - window
+        scores = scores.masked_fill(~mask[:, None, None, :, :],
+                                    float("-inf"))
+        probs = torch.softmax(scores.float(), dim=-1).to(x.dtype)
+        o = torch.einsum("bhrst,bthd->bshrd", probs, v).reshape(B, S, H * hd)
+    return linear(params["wo"], o)
+
+
+def attention_decode(params, x: torch.Tensor, cfg: ModelConfig,
+                     k_cache: torch.Tensor, v_cache: torch.Tensor,
+                     pos: torch.Tensor, window: int = 0):
+    """One-token decode against a KV cache.
+
+    x: (B,1,D); caches: (B,Hkv,T,hd); pos: 0-d int32 tensor, the current
+    index, shared by every batch row.  The new K/V row is written into the
+    caches in place at min(pos, T-1) (the clamp of the reference's
+    dynamic_update_slice).  Returns (out (B,1,D), k_cache, v_cache).
+    """
+    _check_attn_impl(cfg)
+    B, _, D = x.shape
+    H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    rep = H // Hkv
+    T = k_cache.shape[2]
+    q = linear(params["wq"], x).reshape(B, 1, H, hd)
+    k = linear(params["wk"], x).reshape(B, 1, Hkv, hd)
+    v = linear(params["wv"], x).reshape(B, 1, Hkv, hd)
+    posb = pos.reshape(1, 1).expand(B, 1)
+    q = apply_rope(q, posb, cfg.rope_theta)
+    k = apply_rope(k, posb, cfg.rope_theta)
+
+    idx = torch.clamp(pos, max=T - 1).reshape(1).long()
+    k_cache.index_copy_(2, idx, k.transpose(1, 2).to(k_cache.dtype))
+    v_cache.index_copy_(2, idx, v.transpose(1, 2).to(v_cache.dtype))
+    if cfg.attn_impl == "pallas":
+        from ..kernels.decode_attention import ops as da_ops
+        o = da_ops.decode_attention(q.reshape(B, H, hd), k_cache, v_cache,
+                                    pos + 1, window=window)
+        o = o.reshape(B, 1, H * hd)
+    else:
+        q = q.reshape(B, 1, Hkv, rep, hd)
+        scale = 1.0 / math.sqrt(hd)
+        scores = torch.einsum("bshrd,bhtd->bhrst", q,
+                              k_cache.to(q.dtype)) * scale
+        jj = torch.arange(T, device=x.device)
+        mask = jj <= pos
+        if window:
+            mask &= jj > pos - window
+        scores = scores.masked_fill(~mask, float("-inf"))
+        probs = torch.softmax(scores.float(), dim=-1).to(x.dtype)
+        o = torch.einsum("bhrst,bhtd->bshrd", probs,
+                         v_cache.to(x.dtype)).reshape(B, 1, H * hd)
+    return linear(params["wo"], o), k_cache, v_cache
+
+
+# ---------------------------------------------------------------------------
+# gated MLP (SwiGLU / GeGLU)
+# ---------------------------------------------------------------------------
+
+
+def init_mlp(gen, d_model: int, d_ff: int, dtype, device="cpu",
+             layers: tuple = ()):
+    n = len(layers)
+    return {
+        "w_gate": dense_init(gen, layers + (d_model, d_ff), n, dtype, device),
+        "w_up": dense_init(gen, layers + (d_model, d_ff), n, dtype, device),
+        "w_down": dense_init(gen, layers + (d_ff, d_model), n, dtype, device),
+    }
+
+
+def mlp(params, x: torch.Tensor, activation: str) -> torch.Tensor:
+    g = linear(params["w_gate"], x)
+    u = linear(params["w_up"], x)
+    # jax.nn.gelu defaults to the tanh approximation
+    act = F.gelu(g, approximate="tanh") if activation == "geglu" \
+        else F.silu(g)
+    return linear(params["w_down"], act * u)

@@ -1,0 +1,136 @@
+"""The port's CUDA kernels against their plain versions on the card, and
+the model and engine through them.  Skips without a card; run there with
+`PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py`."""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import smoke_config
+from repro_torch.kernels.decode_attention import ops as da_ops
+from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.models import decode_step, forward, init_cache, init_params
+from repro_torch.serve.engine import Request, ServeConfig, ServingEngine
+
+pytestmark = pytest.mark.gpu
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+# (B, H, Hkv, Sq, Sk, hd, causal, window): tests/test_kernels.py FA_SHAPES,
+# every head dim the configs use, and a row set with no visible key
+FA_CASES = [
+    (1, 4, 4, 64, 64, 32, True, 0), (2, 8, 2, 96, 96, 64, True, 0),
+    (1, 4, 1, 128, 128, 32, True, 0), (1, 2, 2, 80, 80, 32, True, 0),
+    (1, 4, 2, 64, 64, 32, True, 24), (1, 2, 2, 48, 48, 16, False, 0),
+    (1, 6, 2, 100, 100, 96, True, 0), (1, 4, 4, 70, 70, 112, True, 0),
+    (1, 4, 2, 130, 130, 128, True, 40), (1, 2, 2, 70, 70, 256, True, 0),
+    (1, 2, 2, 48, 16, 16, False, 8), (2, 15, 5, 200, 200, 64, True, 0),
+]
+# (B, H, Hkv, T, hd, length, window): DA_SHAPES, head dims, length > T
+DA_CASES = [
+    (2, 4, 4, 128, 32, 100, 0), (1, 8, 2, 256, 64, 256, 0),
+    (2, 4, 1, 64, 32, 1, 0), (1, 4, 4, 160, 32, 130, 0),
+    (1, 4, 2, 256, 32, 200, 96), (2, 12, 4, 100, 96, 77, 0),
+    (1, 4, 4, 90, 112, 90, 0), (2, 96, 8, 200, 128, 150, 0),
+    (1, 4, 2, 80, 256, 70, 30), (8, 15, 5, 512, 64, 700, 0),
+    (8, 15, 5, 512, 64, 0, 0),
+]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _randn(gen, shape, dtype, device):
+    return torch.randn(shape, generator=gen, device=device).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", FA_CASES)
+def test_flash_kernel_matches_plain(cuda, case, dtype):
+    B, H, Hkv, Sq, Sk, hd, causal, window = case
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q = _randn(gen, (B, H, Sq, hd), DTYPES[dtype], cuda)
+    k = _randn(gen, (B, Hkv, Sk, hd), DTYPES[dtype], cuda)
+    v = _randn(gen, (B, Hkv, Sk, hd), DTYPES[dtype], cuda)
+    before = fa_ops.launches
+    out = fa_ops.flash_attention_bhsd(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa_ops.launches == before + 1
+    ref = attention_ref(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", DA_CASES)
+def test_decode_kernel_matches_plain(cuda, case, dtype):
+    B, H, Hkv, T, hd, length, window = case
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    q = _randn(gen, (B, H, hd), DTYPES[dtype], cuda)
+    k = _randn(gen, (B, Hkv, T, hd), DTYPES[dtype], cuda)
+    v = _randn(gen, (B, Hkv, T, hd), DTYPES[dtype], cuda)
+    length = torch.tensor(length, dtype=torch.int32, device=cuda)
+    before = da_ops.launches
+    out = da_ops.decode_attention(q, k, v, length, window=window)
+    torch.cuda.synchronize()
+    assert da_ops.launches == before + 1
+    ref = decode_attention_ref(q, k, v, length, window=window)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+
+
+def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    q = torch.zeros(1, 2, 8, 48, device=cuda)          # head dim 48
+    with pytest.raises(ValueError, match="unsupported"):
+        fa_ops.flash_attention_bhsd(q, q, q)
+    q = torch.zeros(1, 2, 64, dtype=torch.float16, device=cuda)
+    k = torch.zeros(1, 1, 8, 64, dtype=torch.float16, device=cuda)
+    with pytest.raises(TypeError):
+        da_ops.decode_attention(q, k, k, 3)
+    k = torch.zeros(1, 1, 64, 8, device=cuda).transpose(2, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        da_ops.decode_attention(q.float(), k, k, 3)
+
+
+def test_model_decode_matches_forward_through_the_kernels(cuda):
+    cfg = smoke_config("smollm-360m").scaled(dtype="float32",
+                                             attn_impl="pallas")
+    params = init_params(cfg, seed=0, device=cuda)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 24))).to(cuda)
+    d0, f0 = da_ops.launches, fa_ops.launches
+    ref, _, _ = forward(params, {"tokens": tokens}, cfg)
+    cache = init_cache(cfg, 2, 24, device=cuda)
+    outs = []
+    for t in range(24):
+        logits, cache = decode_step(params, cache, tokens[:, t:t + 1], cfg)
+        outs.append(logits)
+    torch.testing.assert_close(torch.stack(outs, 1), ref, rtol=2e-3,
+                               atol=2e-3)
+    assert fa_ops.launches == f0 + cfg.num_layers
+    assert da_ops.launches == d0 + 24 * cfg.num_layers
+
+
+def test_engine_tokens_equal_with_kernels_and_plain(cuda):
+    cfg = smoke_config("smollm-360m").scaled(dtype="float32",
+                                             attn_impl="pallas")
+    params = init_params(cfg, seed=1, device=cuda)
+    outs = []
+    for impl in ("pallas", "xla"):
+        eng = ServingEngine(cfg.scaled(attn_impl=impl), params,
+                            ServeConfig(slots=2, max_seq=24), device=cuda)
+        for i, p in enumerate(([5, 6, 7], [1, 2], [9, 10, 11, 12])):
+            eng.submit(Request(rid=i, prompt=p, max_new_tokens=12))
+        eng.run_until_drained()
+        assert int(eng.cache["pos"]) > 24         # past the cache end
+        outs.append({r: q.output for r, q in eng.finished.items()})
+    assert outs[0] == outs[1]

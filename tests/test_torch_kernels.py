@@ -1,0 +1,130 @@
+"""The port's plain attention versions against the JAX Pallas kernels (in
+interpret mode) on the same inputs, and the CPU dispatch of the wrappers.
+Shapes and tolerances are the reference's (tests/test_kernels.py)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.decode_attention.kernel import decode_attention_bhd
+from repro.kernels.flash_attention.kernel import flash_attention_bhsd
+from repro.kernels.flash_attention.ref import \
+    attention_ref as jax_attention_ref
+from repro_torch.kernels.decode_attention import ops as da_ops
+from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention.ref import attention_ref
+
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
+       "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+
+FA_SHAPES = [
+    # (B, H, Hkv, Sq, Sk, hd, bq, bk, causal, window)
+    (1, 4, 4, 64, 64, 32, 16, 16, True, 0),       # MHA causal
+    (2, 8, 2, 96, 96, 64, 32, 32, True, 0),       # GQA, non-pow2 grid
+    (1, 4, 1, 128, 128, 32, 64, 32, True, 0),     # MQA, asymmetric blocks
+    (1, 2, 2, 80, 80, 32, 32, 32, True, 0),       # ragged tail (padding)
+    (1, 4, 2, 64, 64, 32, 16, 16, True, 24),      # sliding window
+    (1, 2, 2, 48, 48, 16, 16, 16, False, 0),      # bidirectional
+    (1, 6, 2, 40, 40, 32, 16, 16, True, 0),       # rep=3, as SmolLM's GQA
+]
+
+DA_SHAPES = [
+    # (B, H, Hkv, T, hd, bk, length, window)
+    (2, 4, 4, 128, 32, 32, 100, 0),
+    (1, 8, 2, 256, 64, 64, 256, 0),
+    (2, 4, 1, 64, 32, 16, 1, 0),          # first decode step
+    (1, 4, 4, 160, 32, 64, 130, 0),        # padded tail
+    (1, 4, 2, 256, 32, 64, 200, 96),       # sliding window
+    (2, 6, 2, 64, 32, 16, 90, 0),          # length > T (shared serving pos)
+    (1, 6, 2, 64, 32, 16, 80, 24),         # length > T with a window
+]
+
+
+def _inputs(shapes, dtype, seed):
+    rng = np.random.default_rng(seed)
+    jdt, tdt = DTYPES[dtype]
+    arrs = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    return ([jnp.asarray(a, jdt) for a in arrs],
+            [torch.from_numpy(a).to(tdt) for a in arrs])
+
+
+def _close(port, ref, dtype):
+    np.testing.assert_allclose(port.float().numpy(),
+                               np.asarray(ref, np.float32), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", FA_SHAPES)
+def test_flash_ref_matches_pallas_kernel(case, dtype):
+    B, H, Hkv, Sq, Sk, hd, bq, bk, causal, window = case
+    (jq, jk, jv), (tq, tk, tv) = _inputs(
+        [(B, H, Sq, hd), (B, Hkv, Sk, hd), (B, Hkv, Sk, hd)], dtype, 1)
+    ref = flash_attention_bhsd(jq, jk, jv, causal=causal, window=window,
+                               block_q=bq, block_k=bk, interpret=True)
+    port = attention_ref(tq, tk, tv, causal=causal, window=window)
+    assert port.dtype == tq.dtype and port.shape == tq.shape
+    _close(port, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", DA_SHAPES)
+def test_decode_ref_matches_pallas_kernel(case, dtype):
+    B, H, Hkv, T, hd, bk, length, window = case
+    (jq, jk, jv), (tq, tk, tv) = _inputs(
+        [(B, H, hd), (B, Hkv, T, hd), (B, Hkv, T, hd)], dtype, 2)
+    ref = decode_attention_bhd(jq, jk, jv, jnp.int32(length), window=window,
+                               block_k=bk, interpret=True)
+    port = decode_attention_ref(tq, tk, tv,
+                                torch.tensor(length, dtype=torch.int32),
+                                window=window)
+    assert port.dtype == tq.dtype and port.shape == tq.shape
+    _close(port, ref, dtype)
+
+
+def test_flash_fully_masked_rows_give_zero():
+    """Bidirectional with a window and Sq > Sk + window: rows >= Sk + window
+    - 1 see no key.  The oracle gives them 0 (the Pallas kernel does not:
+    a fully masked tile there gets p = 1, see its NEG_INF handling)."""
+    (jq, jk, jv), (tq, tk, tv) = _inputs(
+        [(1, 2, 48, 16), (1, 2, 16, 16), (1, 2, 16, 16)], "float32", 3)
+    ref = jax_attention_ref(jq, jk, jv, causal=False, window=8)
+    port = attention_ref(tq, tk, tv, causal=False, window=8)
+    _close(port, ref, "float32")
+    assert torch.equal(port[:, :, 23:], torch.zeros_like(port[:, :, 23:]))
+    assert port[:, :, :23].abs().sum(-1).min() > 0
+
+
+def test_decode_length_zero_gives_zero():
+    _, (tq, tk, tv) = _inputs([(1, 2, 16), (1, 1, 8, 16), (1, 1, 8, 16)],
+                              "float32", 4)
+    out = decode_attention_ref(tq, tk, tv, 0)
+    assert torch.equal(out, torch.zeros_like(out))
+
+
+def test_wrappers_take_the_plain_version_for_cpu_tensors():
+    da_ops.launches = fa_ops.launches = 0
+    _, (q, k, v) = _inputs([(2, 6, 32), (2, 2, 64, 32), (2, 2, 64, 32)],
+                           "float32", 5)
+    length = torch.tensor(40, dtype=torch.int32)
+    assert torch.equal(da_ops.decode_attention(q, k, v, length, window=16),
+                       decode_attention_ref(q, k, v, length, window=16))
+    _, (q, k, v) = _inputs([(2, 40, 6, 32), (2, 40, 2, 32), (2, 40, 2, 32)],
+                           "float32", 6)
+    bhsd = [t.transpose(1, 2).contiguous() for t in (q, k, v)]
+    assert torch.equal(fa_ops.flash_attention(q, k, v, window=8),
+                       attention_ref(*bhsd, window=8).transpose(1, 2))
+    assert da_ops.launches == 0 and fa_ops.launches == 0
+
+
+def test_wrappers_refuse_a_device_without_a_kernel():
+    q = torch.zeros(1, 2, 16, device="meta")
+    k = torch.zeros(1, 1, 8, 16, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        da_ops.decode_attention(q, k, k, 3)
+    with pytest.raises(ValueError, match="no kernel"):
+        fa_ops.flash_attention_bhsd(q[:, :, None], k, k)
+    assert da_ops.launches == 0 and fa_ops.launches == 0
