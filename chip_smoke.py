@@ -5,23 +5,32 @@
 
 Phases, each printing its own lines; any failure raises and exits non-zero:
   1. device: the card's name, and its name and power limit from nvidia-smi;
-  2. build: every CUDA source in src/repro_torch/csrc, one nvcc each, in
-     parallel;
+  2. build: every CUDA source in src/repro_torch/csrc (decode_attention,
+     flash_attention, ssd_scan), one nvcc each, started together;
   3. each kernel against its plain PyTorch version on the card, over the
-     reference's test shapes and SmolLM-360M's shapes, f32 and bf16;
+     reference's test shapes and the shapes of SmolLM-360M, Mamba2-2.7B
+     and Zamba2-7B, f32 and bf16;
   4. SmolLM-360M at full width in f32: token-by-token decode_step logits
      (decode kernel) against the forward pass (flash kernel), within 2e-3;
   5. serving: SmolLM-360M at full width in bf16, 8 slots, 16 requests;
-  6. timings at the main path's shapes: kernel, plain version, and one
-     PyTorch library call as a yardstick (the port never calls it).
-Phases 4 and 5 are the main path: the launch counters are zeroed just
-before phase 4 and read just after phase 5, and every kernel must have
-launched there.  The last two lines are a JSON object of per-kernel
+  6. Mamba2-2.7B at full width: f32 decode against forward (ssd_scan
+     kernel), the f32 kernel engine against the plain engine, a bf16
+     prefill of 2048 tokens, and serving in bf16, 8 slots, 16 requests;
+  7. the hybrid: Zamba2-7B's widths cut to 12 layers (two shared-attention
+     slots), f32 decode against forward through all three kernels;
+  8. timings at the main paths' shapes: kernel, plain version, and one
+     PyTorch library call as a yardstick where one computes the same
+     function (the port never calls it).
+Phases 4-5, 6 and 7 are the three main paths.  The launch counters are
+zeroed just before each and read just after it; every kernel of a path
+must have launched there, and the JSON line's `launches` is a kernel's sum
+over the three.  The last two lines are a JSON object of per-kernel
 numbers and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -41,8 +50,10 @@ from repro_torch.kernels.decode_attention.ref import \
     decode_attention_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
+from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref  # noqa: E402
 from repro_torch.models import (decode_step, forward, init_cache,  # noqa: E402
-                                init_params)
+                                init_params, prefill)
 from repro_torch.serve.engine import (Request, ServeConfig,  # noqa: E402
                                       ServingEngine)
 
@@ -52,6 +63,7 @@ PEAK_FLOPS = {torch.bfloat16: 989e12,     # dense tensor-core bf16
 DT = {"f32": torch.float32, "bf16": torch.bfloat16}
 TOL = {"f32": 2e-5, "bf16": 2e-2}         # tests/test_kernels.py
 TOL_LONG_F32 = 1e-4                       # f32 at S >= 2000: longer sums
+SSD_TOL = {"f32": 1e-4, "bf16": 3e-2}      # tests/test_kernels.py
 
 # (B, H, Hkv, T, hd, length, window): the reference's DA_SHAPES, then
 # SmolLM-360M serving (8 slots, max_seq 512), length > T included
@@ -62,6 +74,8 @@ DECODE_CASES = [
     (8, 15, 5, 512, 64, 1, 0), (8, 15, 5, 512, 64, 200, 0),
     (8, 15, 5, 512, 64, 512, 0), (8, 15, 5, 512, 64, 700, 0),
     (8, 15, 5, 512, 64, 700, 128),
+    (2, 32, 32, 256, 112, 1, 0), (2, 32, 32, 256, 112, 256, 0),
+    (8, 32, 32, 512, 112, 300, 0),
 ]
 # (B, H, Hkv, Sq, Sk, hd, causal, window): the reference's FA_SHAPES, a
 # row set with no visible key, then SmolLM-360M prompts
@@ -72,7 +86,19 @@ FLASH_CASES = [
     (1, 2, 2, 48, 16, 16, False, 8),
     (2, 15, 5, 2048, 2048, 64, True, 0), (2, 15, 5, 2000, 2000, 64, True, 0),
     (2, 15, 5, 2048, 2048, 64, True, 256),
+    (2, 32, 32, 256, 256, 112, True, 32768),
+    (1, 32, 32, 512, 512, 112, True, 128),
 ]
+# (b, s, h, p, n, chunk, strong decay): the reference's SSD_SHAPES,
+# Mamba2-2.7B's and Zamba2-7B's shapes, and A = -16, dt = 0.1, where
+# exp(cum_i - cum_j) above the diagonal overflows to +inf
+SSD_CASES = [
+    (1, 64, 4, 16, 16, 16, False), (2, 128, 8, 32, 32, 32, False),
+    (1, 96, 2, 16, 64, 32, False), (1, 64, 8, 64, 16, 64, False),
+    (2, 2048, 80, 64, 128, 128, False), (2, 512, 112, 64, 64, 128, False),
+    (2, 512, 80, 64, 128, 128, True),
+]
+MAMBA_SHAPE = (2, 2048, 80, 64, 128, 128, False)
 
 
 def log(phase: str, msg: str) -> None:
@@ -131,6 +157,24 @@ def flash_inputs(case, dtype, device, seed=0):
             randn(gen, (B, Hkv, Sk, hd), dtype, device))
 
 
+def ssd_inputs(case, dtype, device, seed=0):
+    """The reference's SSD test inputs (x, B, C normal; dt uniform in
+    [0.001, 0.1]; A uniform in [-2, -0.5]) or, with strong decay, A = -16
+    and dt = 0.1."""
+    b, s, h, p, n, chunk, strong = case
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = randn(gen, (b, s, h, p), dtype, device)
+    if strong:
+        dt = torch.full((b, s, h), 0.1, device=device)
+        A = torch.full((h,), -16.0, device=device)
+    else:
+        dt = 0.001 + 0.099 * torch.rand((b, s, h), generator=gen,
+                                        device=device)
+        A = -(0.5 + 1.5 * torch.rand((h,), generator=gen, device=device))
+    return (x, dt, A, randn(gen, (b, s, n), dtype, device),
+            randn(gen, (b, s, n), dtype, device))
+
+
 def compare(name, out, ref, tol) -> float:
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol,
                                msg=lambda m: f"{name}: {m}")
@@ -147,7 +191,8 @@ def check_kernels(device) -> None:
             torch.cuda.synchronize()
             err = compare(f"decode {case} {dname}", out, ref, TOL[dname])
             log("kernel", f"decode_attention {dname} (B,H,Hkv,T,hd,len,win)="
-                f"{case}: max_abs_err {err:.3g} (tol {TOL[dname]})")
+                f"{case}: max_abs_err {err:.3g} "
+                f"(rtol = atol = {TOL[dname]})")
         for case in FLASH_CASES:
             q, k, v = flash_inputs(case, dtype, device)
             causal, window = case[6], case[7]
@@ -159,11 +204,24 @@ def check_kernels(device) -> None:
                 else TOL[dname]
             err = compare(f"flash {case} {dname}", out, ref, tol)
             log("kernel", f"flash_attention {dname} (B,H,Hkv,Sq,Sk,hd,causal,"
-                f"win)={case}: max_abs_err {err:.3g} (tol {tol})")
+                f"win)={case}: max_abs_err {err:.3g} "
+                f"(rtol = atol = {tol})")
+        for case in SSD_CASES:
+            x, dt, A, B, C = ssd_inputs(case, dtype, device)
+            y = ssd_ops.ssd_scan(x, dt, A, B, C, chunk=case[5])
+            ref = ssd_scan_ref(x, dt, A, B, C, case[5])
+            torch.cuda.synchronize()
+            if not torch.isfinite(y.float()).all():
+                raise AssertionError(f"ssd_scan {case} {dname}: non-finite")
+            err = compare(f"ssd {case} {dname}", y, ref, SSD_TOL[dname])
+            log("kernel", f"ssd_scan {dname} (b,s,h,p,n,chunk,strong)="
+                f"{case}: max_abs_err {err:.3g} "
+                f"(rtol = atol = {SSD_TOL[dname]}, "
+                f"max |ref| {float(ref.float().abs().max()):.3g})")
 
 
 # ---------------------------------------------------------------------------
-# phase 4: full width, decode against forward
+# the main paths' checks: decode against forward, serving
 # ---------------------------------------------------------------------------
 
 
@@ -183,10 +241,6 @@ def decode_vs_forward(cfg, params, device, B=2, S=64, seed=0):
         raise AssertionError(f"logits shape {tuple(dec.shape)}")
     return compare("decode vs forward", dec, ref, 2e-3)
 
-
-# ---------------------------------------------------------------------------
-# phase 5: serving
-# ---------------------------------------------------------------------------
 
 
 def make_requests(vocab, n=16, lo=32, hi=128, new=32, seed=0):
@@ -212,8 +266,177 @@ def serve(cfg, params, scfg, requests, device):
     return eng, time.perf_counter() - t0, step_s
 
 
+def report_serving(name, eng, requests, wall, step_s, weight_bytes, vocab,
+                   new=32):
+    """Check that every request finished with 1..new valid tokens, and
+    print the serving metrics."""
+    outs = [eng.finished[r.rid].output for r in requests
+            if r.rid in eng.finished]
+    if len(outs) != len(requests):
+        raise AssertionError(f"{len(outs)}/{len(requests)} requests finished")
+    for o in outs:
+        if not (1 <= len(o) <= new and all(0 <= t < vocab for t in o)):
+            raise AssertionError(f"bad output {o}")
+    generated = sum(len(o) for o in outs)
+    steps, slots = len(step_s), eng.scfg.slots
+    log("serve", f"{name} full width bf16 ({weight_bytes} B of weights), "
+        f"{slots} slots, max_seq {eng.scfg.max_seq}: {len(outs)}/"
+        f"{len(requests)} requests finished, {generated} tokens generated "
+        f"in {steps} steps, {wall:.3f} s")
+    log("serve", f"{name}: {generated / wall:.1f} generated tokens/s, "
+        f"{slots * steps / wall:.1f} slot-steps/s, p50 step "
+        f"{1e3 * float(np.median(step_s)):.3f} ms, p99 step "
+        f"{1e3 * float(np.percentile(step_s, 99)):.3f} ms, shared pos "
+        f"{int(eng.cache['pos'])}, max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated()} B")
+
+
+def engines_agree(cfg32, params32, device):
+    """The f32 kernel engine gives the plain (eager) engine's tokens on
+    the same small requests."""
+    outs = []
+    for impl in ("pallas", "xla"):
+        small = make_requests(cfg32.vocab_size, n=2, lo=16, hi=16, new=8,
+                              seed=1)
+        eng, _, _ = serve(cfg32.scaled(attn_impl=impl), params32,
+                          ServeConfig(slots=2, max_seq=64), small, device)
+        outs.append({r: q.output for r, q in eng.finished.items()})
+    if outs[0] != outs[1]:
+        raise AssertionError(f"kernel engine {outs[0]} != plain {outs[1]}")
+    return outs[0]
+
+
+def zero_launches() -> None:
+    da_ops.launches = fa_ops.launches = ssd_ops.launches = 0
+
+
+def read_launches(path: str, needed) -> dict:
+    got = {"decode_attention": da_ops.launches,
+           "flash_attention": fa_ops.launches,
+           "ssd_scan": ssd_ops.launches}
+    log(path, f"launches on this path: {got}")
+    for name in needed:
+        if got[name] <= 0:
+            raise AssertionError(f"{name} was not launched on the {path} "
+                                 "path")
+    return got
+
+
+def free() -> None:
+    """Return the memory of a finished phase's tensors to the card before
+    the next model loads."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
-# phase 6: timings
+# phases 4-5: SmolLM-360M
+# ---------------------------------------------------------------------------
+
+
+def smollm_path(device):
+    base = get_config("smollm-360m").scaled(attn_impl="pallas")
+    cfg32 = base.scaled(dtype="float32")
+    params32 = init_params(cfg32, seed=0, device=device)
+    n_params = sum(t.numel() for t in leaves(params32))
+    err = decode_vs_forward(cfg32, params32, device)
+    log("decode-vs-forward", f"smollm-360m full width ({n_params} "
+        f"params) f32 B=2 S=64: max_abs_err {err:.3g} "
+        "(rtol = atol = 2e-3)")
+
+    cfg16 = base.scaled(dtype="bfloat16")
+    params16 = init_params(cfg16, seed=0, device=device)
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in leaves(params16))
+    requests = make_requests(cfg16.vocab_size)
+    torch.cuda.reset_peak_memory_stats()
+    eng, wall, step_s = serve(cfg16, params16,
+                              ServeConfig(slots=8, max_seq=512), requests,
+                              device)
+    report_serving("smollm-360m", eng, requests, wall, step_s, weight_bytes,
+                   cfg16.vocab_size)
+    toks = engines_agree(cfg32, params32, device)
+    log("serve", f"smollm-360m f32 kernel engine tokens == plain engine "
+        f"tokens: {toks}")
+    return min(int(eng.cache["pos"]), 512)
+
+
+# ---------------------------------------------------------------------------
+# phase 6: Mamba2-2.7B
+# ---------------------------------------------------------------------------
+
+
+def mamba2_path(device):
+    base = get_config("mamba2-2.7b").scaled(attn_impl="pallas")
+    cfg32 = base.scaled(dtype="float32")
+    params32 = init_params(cfg32, seed=0, device=device)
+    n_params = sum(t.numel() for t in leaves(params32))
+    err = decode_vs_forward(cfg32, params32, device, S=256)
+    log("mamba2", f"decode-vs-forward: mamba2-2.7b full width ({n_params} "
+        f"params) f32 B=2 S=256 (two chunks of 128): max_abs_err {err:.3g} "
+        "(rtol = atol = 2e-3)")
+    toks = engines_agree(cfg32, params32, device)
+    log("mamba2", f"f32 kernel engine tokens == plain engine tokens: {toks}")
+    del params32
+    free()
+
+    cfg16 = base.scaled(dtype="bfloat16")
+    params16 = init_params(cfg16, seed=0, device=device)
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in leaves(params16))
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg16.vocab_size, (2, 2048))).to(device)
+    prefill(params16, {"tokens": tokens}, cfg16, 2048)   # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    last = prefill(params16, {"tokens": tokens}, cfg16, 2048)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    plain = prefill(params16, {"tokens": tokens},
+                    cfg16.scaled(attn_impl="xla"), 2048)
+    if last.shape != (2, cfg16.vocab_size) or not torch.isfinite(last).all():
+        raise AssertionError(f"prefill logits {tuple(last.shape)} not finite")
+    rel = float((last - plain).abs().max() / plain.abs().max())
+    agree = float((last.argmax(-1) == plain.argmax(-1)).float().mean())
+    log("mamba2", f"prefill bf16 B=2 S=2048: {1e3 * wall:.3f} ms, "
+        f"{2 * 2048 / wall:.1f} tokens/s; against the eager path (bf16 "
+        f"casts of ssd_chunked): max |diff| / max |logit| {rel:.3g} "
+        f"(limit 0.25), top-1 agreement {agree}")
+    if rel > 0.25:
+        raise AssertionError(f"prefill kernel vs eager: relative {rel}")
+
+    requests = make_requests(cfg16.vocab_size)
+    torch.cuda.reset_peak_memory_stats()
+    eng, wall, step_s = serve(cfg16, params16,
+                              ServeConfig(slots=8, max_seq=512), requests,
+                              device)
+    ssm_bytes = sum(t.numel() * t.element_size()
+                    for t in leaves(eng.cache["ssm"]))
+    report_serving("mamba2-2.7b", eng, requests, wall, step_s, weight_bytes,
+                   cfg16.vocab_size)
+    log("mamba2", f"SSM cache at 8 slots: {ssm_bytes} B "
+        f"(state {eng.cache['ssm']['state'].numel() * 2} B of bf16)")
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the hybrid, Zamba2-7B widths at 12 layers
+# ---------------------------------------------------------------------------
+
+
+def hybrid_path(device):
+    cfg = get_config("zamba2-7b").scaled(num_layers=12, attn_impl="pallas",
+                                         dtype="float32")
+    params = init_params(cfg, seed=0, device=device)
+    n_params = sum(t.numel() for t in leaves(params))
+    err = decode_vs_forward(cfg, params, device, S=256)
+    log("hybrid", f"decode-vs-forward: zamba2-7b widths, 12 layers "
+        f"({n_params} params, shared attention after layers 6 and 12, "
+        f"window {cfg.attn_window}) f32 B=2 S=256 max_seq 256: max_abs_err "
+        f"{err:.3g} (rtol = atol = 2e-3)")
+
+
+# ---------------------------------------------------------------------------
+# phase 8: timings
 # ---------------------------------------------------------------------------
 
 
@@ -235,6 +458,26 @@ def time_decode(case, dtype, device):
                 bound_by=b_by, library_ms=library)
 
 
+def time_ssd(case, dtype, device, iters=20):
+    b, s, h, p, n, q, _ = case
+    x, dt, A, B, C = ssd_inputs(case, dtype, device, seed=1)
+    y = ssd_ops.ssd_scan(x, dt, A, B, C, chunk=q)
+    err = compare("ssd timing shape", y, ssd_scan_ref(x, dt, A, B, C, q),
+                  SSD_TOL["f32" if dtype == torch.float32 else "bf16"])
+    ms = cuda_ms(lambda: ssd_ops.ssd_scan(x, dt, A, B, C, chunk=q), iters)
+    plain = cuda_ms(lambda: ssd_scan_ref(x, dt, A, B, C, q), 5)
+    elt = x.element_size()
+    nbytes = elt * (2 * b * s * h * p + 2 * b * s * n) + 4 * (b * s * h + h)
+    nc = s // q
+    # per (b, head, chunk) C.(state), (weighted x)^T B and M x; per
+    # (b, chunk) one C B^T shared by the heads
+    flops = b * h * nc * 3 * 2 * q * q * p + b * nc * 2 * q * q * n
+    b_ms, b_by = bound(nbytes, flops, dtype)
+    # no single PyTorch call computes the SSD scan
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
+
+
 def time_flash(case, dtype, device, iters=50):
     B, H, Hkv, S, _, hd, causal, window = case
     q, k, v = flash_inputs(case, dtype, device, seed=1)
@@ -251,6 +494,26 @@ def time_flash(case, dtype, device, iters=50):
     b_ms, b_by = bound(nbytes, flops, dtype)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
                 bound_by=b_by, library_ms=library)
+
+
+def time_ssd(case, dtype, device, iters=20):
+    b, s, h, p, n, q, _ = case
+    x, dt, A, B, C = ssd_inputs(case, dtype, device, seed=1)
+    y = ssd_ops.ssd_scan(x, dt, A, B, C, chunk=q)
+    err = compare("ssd timing shape", y, ssd_scan_ref(x, dt, A, B, C, q),
+                  SSD_TOL["f32" if dtype == torch.float32 else "bf16"])
+    ms = cuda_ms(lambda: ssd_ops.ssd_scan(x, dt, A, B, C, chunk=q), iters)
+    plain = cuda_ms(lambda: ssd_scan_ref(x, dt, A, B, C, q), 5)
+    elt = x.element_size()
+    nbytes = elt * (2 * b * s * h * p + 2 * b * s * n) + 4 * (b * s * h + h)
+    nc = s // q
+    # per (b, head, chunk) C.(state), (weighted x)^T B and M x; per
+    # (b, chunk) one C B^T shared by the heads
+    flops = b * h * nc * 3 * 2 * q * q * p + b * nc * 2 * q * q * n
+    b_ms, b_by = bound(nbytes, flops, dtype)
+    # no single PyTorch call computes the SSD scan
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
 
 
 def main() -> int:
@@ -281,70 +544,29 @@ def main() -> int:
         log("build", f"{name}: {len(spills)} ptxas lines with spills "
             f"(log in build/torch_kernels/{name}.ptxas.log)")
 
+    t0 = time.perf_counter()
     check_kernels(device)
+    log("kernel", f"phase 3 took {time.perf_counter() - t0:.1f} s")
 
-    # -- the main path: phases 4 and 5 ----------------------------------------
-    da_ops.launches = fa_ops.launches = 0
-    base = get_config("smollm-360m").scaled(attn_impl="pallas")
-    cfg32 = base.scaled(dtype="float32")
-    params32 = init_params(cfg32, seed=0, device=device)
-    n_params = sum(t.numel() for t in leaves(params32))
-    err = decode_vs_forward(cfg32, params32, device)
-    log("decode-vs-forward", f"smollm-360m full width ({n_params} "
-        f"params) f32 B=2 S=64: max_abs_err {err:.3g} (tol 2e-3)")
-
-    cfg16 = base.scaled(dtype="bfloat16")
-    params16 = init_params(cfg16, seed=0, device=device)
-    weight_bytes = sum(t.numel() * t.element_size()
-                       for t in leaves(params16))
-    requests = make_requests(cfg16.vocab_size)
-    torch.cuda.reset_peak_memory_stats()
-    eng, wall, step_s = serve(cfg16, params16,
-                              ServeConfig(slots=8, max_seq=512), requests,
-                              device)
-    launches = {"decode_attention": da_ops.launches,
-                "flash_attention": fa_ops.launches}
-    outs = [eng.finished[r.rid].output for r in requests
-            if r.rid in eng.finished]
-    generated = sum(len(o) for o in outs)
-    if len(outs) != len(requests):
-        raise AssertionError(f"{len(outs)}/{len(requests)} requests finished")
-    for o in outs:
-        if not (1 <= len(o) <= 32 and all(0 <= t < cfg16.vocab_size
-                                          for t in o)):
-            raise AssertionError(f"bad output {o}")
-    steps = len(step_s)
-    log("serve", f"smollm-360m full width bf16 ({weight_bytes} B "
-        f"of weights), 8 slots, max_seq 512: "
-        f"{len(outs)}/{len(requests)} requests finished, {generated} tokens "
-        f"generated in {steps} steps, {wall:.3f} s")
-    log("serve", f"{generated / wall:.1f} generated tokens/s, "
-        f"{8 * steps / wall:.1f} slot-steps/s, p50 step "
-        f"{1e3 * float(np.median(step_s)):.3f} ms, p99 step "
-        f"{1e3 * float(np.percentile(step_s, 99)):.3f} ms, shared pos "
-        f"{int(eng.cache['pos'])}, max_memory_allocated "
-        f"{torch.cuda.max_memory_allocated()} B")
-    log("serve", f"main-path launches (phases 4-5): {launches}")
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"{name} was not launched on the main path")
-
-    # kernel engine against the plain (eager) engine, f32, same requests
-    small = make_requests(cfg32.vocab_size, n=2, lo=16, hi=16, new=8, seed=1)
-    kern, _, _ = serve(cfg32, params32, ServeConfig(slots=2, max_seq=64),
-                       small, device)
-    plain_small = make_requests(cfg32.vocab_size, n=2, lo=16, hi=16, new=8,
-                                seed=1)
-    plain, _, _ = serve(cfg32.scaled(attn_impl="xla"), params32,
-                        ServeConfig(slots=2, max_seq=64), plain_small, device)
-    k_out = {r: q.output for r, q in kern.finished.items()}
-    p_out = {r: q.output for r, q in plain.finished.items()}
-    if k_out != p_out:
-        raise AssertionError(f"kernel engine {k_out} != plain {p_out}")
-    log("serve", f"f32 kernel engine tokens == plain engine tokens: {k_out}")
+    # -- the main paths: the counters are zeroed before each, read after ---
+    paths = {}
+    for path, run, needed in (
+            ("smollm", smollm_path, ("decode_attention", "flash_attention")),
+            ("mamba2", mamba2_path, ("ssd_scan",)),
+            ("hybrid", hybrid_path,
+             ("decode_attention", "flash_attention", "ssd_scan"))):
+        t0 = time.perf_counter()
+        zero_launches()
+        out = run(device)
+        paths[path] = read_launches(path, needed)
+        if path == "smollm":
+            dec_len = out
+        free()
+        log(path, f"path took {time.perf_counter() - t0:.1f} s")
+    launches = {k: sum(p[k] for p in paths.values())
+                for k in paths["smollm"]}
 
     # -- timings --------------------------------------------------------------
-    dec_len = min(int(eng.cache["pos"]), 512)
     dec = time_decode((8, 15, 5, 512, 64, dec_len, 0), torch.bfloat16, device)
     fla = time_flash((2, 15, 5, 64, 64, 64, True, 0), torch.float32, device,
                      iters=200)
@@ -360,6 +582,12 @@ def main() -> int:
         log("timing", f"flash_attention {dtype} B=2 H=15 Hkv=5 S=2048 hd=64 "
             "causal: " + str(time_flash((2, 15, 5, 2048, 2048, 64, True, 0),
                                         dtype, device, iters=20)))
+    ssd = time_ssd(MAMBA_SHAPE, torch.bfloat16, device)
+    log("timing", f"ssd_scan bf16 b=2 s=2048 h=80 p=64 n=128 chunk=128: "
+        f"{ssd}; library: none (no single PyTorch call computes the scan)")
+    log("timing", "ssd_scan f32 b=2 s=2048 h=80 p=64 n=128 chunk=128: "
+        + str(time_ssd(MAMBA_SHAPE, torch.float32, device)))
+    log("timing", f"main-path launches per path: {paths}")
 
     kernels = [
         dict(name="decode_attention", route="cuda",
@@ -370,6 +598,10 @@ def main() -> int:
              source="src/repro_torch/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:88",
              launches=launches["flash_attention"], **fla),
+        dict(name="ssd_scan", route="cuda",
+             source="src/repro_torch/csrc/ssd_scan.cu",
+             replaces="src/repro/kernels/ssd_scan/kernel.py:76",
+             launches=launches["ssd_scan"], **ssd),
     ]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,4 +1,5 @@
-"""PyTorch model library (dense family); mirrors `repro.models`."""
+"""PyTorch model library (dense, ssm and hybrid families); mirrors
+`repro.models`."""
 
 from .config import ModelConfig
 from .model import decode_step, forward, init_cache, init_params, prefill

@@ -1,10 +1,12 @@
-"""Model assembly in PyTorch, dense family; a port of
+"""Model assembly in PyTorch, dense, ssm and hybrid families; a port of
 `repro/models/model.py`.
 
 embedding -> stacked layers (a Python loop over the leading L axis, in
-place of `lax.scan`) -> norm -> tied or separate unembedding.  Parameters
-keep the reference's tree, so `repro_torch.convert` carries weights across
-both ways.  The moe, ssm and hybrid families come with later slices.
+place of `lax.scan`) -> norm -> tied or separate unembedding.  Hybrid
+models run Mamba2 blocks and apply one *shared* attention + MLP block
+after every `attn_every`-th layer (Zamba2-style).  Parameters keep the
+reference's tree, so `repro_torch.convert` carries weights across both
+ways.  The moe family comes with a later slice.
 """
 
 from __future__ import annotations
@@ -17,9 +19,9 @@ from ..device import resolve
 from .config import ModelConfig
 from .layers import (attention, attention_decode, embed_init, init_attention,
                      init_mlp, init_rmsnorm, mlp, rms_norm)
+from .mamba2 import init_mamba2, init_ssm_cache, mamba2_block, mamba2_decode
 
-_LATER = {"moe": "the MoE/int8 slice", "ssm": "the Mamba2/ssd_scan slice",
-          "hybrid": "the Mamba2/ssd_scan slice"}
+_LATER = {"moe": "the MoE/int8 slice"}
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -29,7 +31,7 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "ssm", "hybrid"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet; it comes with "
             f"{_LATER.get(cfg.family, 'a later slice')}")
@@ -56,13 +58,33 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
     }
     if not cfg.tie_embeddings:
         params["unembed"] = embed_init(gen, (D, cfg.vocab_size), dt, dev)
-    params["layers"] = {
-        "attn_norm": init_rmsnorm(D, dev, L),
-        "attn": init_attention(gen, cfg, dt, dev, L),
-        "mlp_norm": init_rmsnorm(D, dev, L),
-        "mlp": init_mlp(gen, D, cfg.d_ff, dt, dev, L),
-    }
+    if cfg.family == "dense":
+        params["layers"] = {
+            "attn_norm": init_rmsnorm(D, dev, L),
+            "attn": init_attention(gen, cfg, dt, dev, L),
+            "mlp_norm": init_rmsnorm(D, dev, L),
+            "mlp": init_mlp(gen, D, cfg.d_ff, dt, dev, L),
+        }
+        return params
+    params["layers"] = {"norm": init_rmsnorm(D, dev, L),
+                        "mamba": init_mamba2(gen, cfg, dt, dev, L)}
+    if cfg.family == "hybrid":
+        # one shared attention + MLP block (weights reused at each slot)
+        params["shared_attn"] = {
+            "attn_norm": init_rmsnorm(D, dev),
+            "attn": init_attention(gen, cfg, dt, dev),
+            "mlp_norm": init_rmsnorm(D, dev),
+            "mlp": init_mlp(gen, D, cfg.d_ff, dt, dev),
+        }
     return params
+
+
+def hybrid_attn_mask(cfg: ModelConfig) -> list[bool]:
+    """True at layers after which the shared attention block runs."""
+    if not cfg.attn_every:
+        return [False] * cfg.num_layers
+    return [i % cfg.attn_every == cfg.attn_every - 1
+            for i in range(cfg.num_layers)]
 
 
 def _layer_slice(stacked, i: int):
@@ -105,18 +127,33 @@ def _embed_inputs(params, batch: dict, cfg: ModelConfig):
     return h, positions, mask
 
 
+def _shared_attn_block(cfg: ModelConfig, h, sp, positions):
+    a = attention(sp["attn"], rms_norm(sp["attn_norm"], h, cfg.norm_eps),
+                  cfg, positions, window=cfg.attn_window)
+    h = h + a
+    return h + mlp(sp["mlp"], rms_norm(sp["mlp_norm"], h, cfg.norm_eps),
+                   cfg.activation)
+
+
 def forward(params: dict, batch: dict, cfg: ModelConfig):
     """Full-sequence forward.  Returns (logits (B,S,V) f32, aux_loss,
     loss_mask)."""
     _check_family(cfg)
     h, positions, mask = _embed_inputs(params, batch, cfg)
+    attn_mask = hybrid_attn_mask(cfg)
     for i in range(cfg.num_layers):
         lp = _layer_slice(params["layers"], i)
-        h = h + attention(lp["attn"],
-                          rms_norm(lp["attn_norm"], h, cfg.norm_eps),
-                          cfg, positions)
-        h = h + mlp(lp["mlp"], rms_norm(lp["mlp_norm"], h, cfg.norm_eps),
-                    cfg.activation)
+        if cfg.family == "dense":
+            h = h + attention(lp["attn"],
+                              rms_norm(lp["attn_norm"], h, cfg.norm_eps),
+                              cfg, positions)
+            h = h + mlp(lp["mlp"], rms_norm(lp["mlp_norm"], h, cfg.norm_eps),
+                        cfg.activation)
+            continue
+        h = h + mamba2_block(lp["mamba"], rms_norm(lp["norm"], h,
+                                                   cfg.norm_eps), cfg)
+        if attn_mask[i]:
+            h = _shared_attn_block(cfg, h, params["shared_attn"], positions)
     h = rms_norm(params["final_norm"], h, cfg.norm_eps)
     logits = _unembed(params, cfg, h).to(DTYPES[cfg.logit_dtype])
     return logits, 0.0, mask
@@ -136,16 +173,28 @@ def prefill(params: dict, batch: dict, cfg: ModelConfig, max_seq: int):
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
                device="cuda") -> dict:
-    """{"pos": 0-d int32, "k"/"v": (L, batch, Hkv, max_seq, hd)} on
-    `device`."""
+    """On `device`: {"pos": 0-d int32} and, by family,
+    dense: "k"/"v" (L, batch, Hkv, max_seq, hd);
+    ssm: "ssm": {"state": (L, batch, H, P, N), "conv": (L, batch, K-1, C)};
+    hybrid: "ssm", and "k"/"v" (L // attn_every, batch, Hkv, w, hd) with
+    w = min(attn_window or max_seq, max_seq), a rolling window."""
     _check_family(cfg)
     dev = resolve(device)
     dt = dtype or _dtype(cfg)
-    shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_seq,
-             cfg.resolved_head_dim)
-    return {"pos": torch.zeros((), dtype=torch.int32, device=dev),
-            "k": torch.zeros(shape, dtype=dt, device=dev),
-            "v": torch.zeros(shape, dtype=dt, device=dev)}
+    L = cfg.num_layers
+    cache = {"pos": torch.zeros((), dtype=torch.int32, device=dev)}
+    if cfg.family == "dense":
+        slots, w = L, max_seq
+    else:
+        cache["ssm"] = init_ssm_cache(cfg, batch, dt, dev, (L,))
+        if cfg.family == "ssm":
+            return cache
+        slots = L // max(cfg.attn_every, 1)
+        w = min(cfg.attn_window or max_seq, max_seq)
+    shape = (slots, batch, cfg.num_kv_heads, w, cfg.resolved_head_dim)
+    cache["k"] = torch.zeros(shape, dtype=dt, device=dev)
+    cache["v"] = torch.zeros(shape, dtype=dt, device=dev)
+    return cache
 
 
 def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
@@ -153,9 +202,9 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
     """One-token decode.  tokens: (B, 1) integer (or (B,1,D) frames for
     audio).  Returns (logits (B, V) f32, new_cache).
 
-    The K/V tensors are updated in place (no copy of the whole cache per
-    step): the returned cache shares them with `cache` and carries
-    pos + 1.
+    The cache tensors (K/V, SSM state and conv window) are updated in
+    place (no copy of the whole cache per step): the returned cache shares
+    them with `cache` and carries pos + 1.
     """
     _check_family(cfg)
     dt = _dtype(cfg)
@@ -164,14 +213,57 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
         h = tokens.to(dt)
     else:
         h = params["embed"][tokens].to(dt)            # (B,1,D)
-    for i in range(cfg.num_layers):
-        lp = _layer_slice(params["layers"], i)
-        x = rms_norm(lp["attn_norm"], h, cfg.norm_eps)
-        a, _, _ = attention_decode(lp["attn"], x, cfg, cache["k"][i],
-                                   cache["v"][i], pos)
-        h = h + a
-        h = h + mlp(lp["mlp"], rms_norm(lp["mlp_norm"], h, cfg.norm_eps),
-                    cfg.activation)
+    if cfg.family == "dense":
+        for i in range(cfg.num_layers):
+            lp = _layer_slice(params["layers"], i)
+            x = rms_norm(lp["attn_norm"], h, cfg.norm_eps)
+            a, _, _ = attention_decode(lp["attn"], x, cfg, cache["k"][i],
+                                       cache["v"][i], pos)
+            h = h + a
+            h = h + mlp(lp["mlp"], rms_norm(lp["mlp_norm"], h, cfg.norm_eps),
+                        cfg.activation)
+    else:
+        h = _ssm_decode_layers(params, cache, h, cfg)
     h = rms_norm(params["final_norm"], h, cfg.norm_eps)
     logits = _unembed(params, cfg, h)
     return logits[:, 0].float(), dict(cache, pos=pos + 1)
+
+
+def _ssm_decode_layers(params, cache, h, cfg: ModelConfig):
+    """The ssm and hybrid trunks of `decode_step`, writing the SSM state
+    and conv window (and the hybrid's K/V slots) back in place."""
+    pos = cache["pos"]
+    ssm = cache["ssm"]
+    attn_mask = hybrid_attn_mask(cfg)
+    if cfg.family == "hybrid":
+        sp = params["shared_attn"]
+        w = cache["k"].shape[3]
+        wpos = torch.clamp(pos, max=w - 1)    # position in the rolling window
+        full = pos >= w
+    slot = -1
+    for i in range(cfg.num_layers):
+        lp = _layer_slice(params["layers"], i)
+        out, c2 = mamba2_decode(lp["mamba"],
+                                rms_norm(lp["norm"], h, cfg.norm_eps),
+                                _layer_slice(ssm, i), cfg)
+        ssm["state"][i].copy_(c2["state"])
+        ssm["conv"][i].copy_(c2["conv"])
+        h = h + out
+        if not attn_mask[i]:
+            continue
+        slot += 1
+        # rolling window: shift left by one once the window is full (a
+        # select on the device, as the reference's jnp.where, so the step
+        # does not wait on the host); the rolled copy is written back
+        kc = torch.where(full, cache["k"][slot].roll(-1, dims=2),
+                         cache["k"][slot])
+        vc = torch.where(full, cache["v"][slot].roll(-1, dims=2),
+                         cache["v"][slot])
+        x = rms_norm(sp["attn_norm"], h, cfg.norm_eps)
+        a, kc, vc = attention_decode(sp["attn"], x, cfg, kc, vc, wpos)
+        cache["k"][slot].copy_(kc)
+        cache["v"][slot].copy_(vc)
+        h = h + a
+        h = h + mlp(sp["mlp"], rms_norm(sp["mlp_norm"], h, cfg.norm_eps),
+                    cfg.activation)
+    return h

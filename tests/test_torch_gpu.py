@@ -11,6 +11,8 @@ from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 from repro_torch.models import decode_step, forward, init_cache, init_params
 from repro_torch.serve.engine import Request, ServeConfig, ServingEngine
 
@@ -38,6 +40,16 @@ DA_CASES = [
     (1, 4, 2, 80, 256, 70, 30), (8, 15, 5, 512, 64, 700, 0),
     (8, 15, 5, 512, 64, 0, 0),
 ]
+# (b, s, h, p, n, chunk, strong decay): tests/test_kernels.py SSD_SHAPES,
+# Mamba2-2.7B's and Zamba2-7B's shapes, and A = -16, dt = 0.1, where
+# exp(cum_i - cum_j) above the diagonal overflows
+SSD_CASES = [
+    (1, 64, 4, 16, 16, 16, False), (2, 128, 8, 32, 32, 32, False),
+    (1, 96, 2, 16, 64, 32, False), (1, 64, 8, 64, 16, 64, False),
+    (2, 2048, 80, 64, 128, 128, False), (2, 512, 112, 64, 64, 128, False),
+    (1, 512, 8, 64, 128, 128, True),
+]
+SSD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 
 
 @pytest.fixture
@@ -88,6 +100,66 @@ def test_decode_kernel_matches_plain(cuda, case, dtype):
                                atol=TOL[dtype])
 
 
+def ssd_inputs(case, dtype, device, seed=0):
+    """The reference's SSD test inputs (x, B, C normal; dt uniform in
+    [0.001, 0.1]; A uniform in [-2, -0.5]) or, with strong decay, A = -16
+    and dt = 0.1."""
+    b, s, h, p, n, chunk, strong = case
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = _randn(gen, (b, s, h, p), dtype, device)
+    if strong:
+        dt = torch.full((b, s, h), 0.1, device=device)
+        A = torch.full((h,), -16.0, device=device)
+    else:
+        dt = 0.001 + 0.099 * torch.rand((b, s, h), generator=gen,
+                                        device=device)
+        A = -(0.5 + 1.5 * torch.rand((h,), generator=gen, device=device))
+    B = _randn(gen, (b, s, n), dtype, device)
+    C = _randn(gen, (b, s, n), dtype, device)
+    return x, dt, A, B, C
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", SSD_CASES)
+def test_ssd_kernel_matches_plain(cuda, case, dtype):
+    x, dt, A, B, C = ssd_inputs(case, DTYPES[dtype], cuda)
+    before = ssd_ops.launches
+    y, _ = ssd_ops.ssd(x, dt, A, B[:, :, None], C[:, :, None],
+                       chunk=case[5])
+    torch.cuda.synchronize()
+    assert ssd_ops.launches == before + 1
+    assert y.dtype == x.dtype and torch.isfinite(y.float()).all()
+    ref = ssd_scan_ref(x, dt, A, B, C, case[5])
+    torch.testing.assert_close(y.float(), ref.float(), rtol=SSD_TOL[dtype],
+                               atol=SSD_TOL[dtype])
+
+
+def test_ssd_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
+    x, dt, A, B, C = ssd_inputs((1, 64, 2, 16, 16, 16, False),
+                                torch.float32, cuda)
+    before = ssd_ops.launches
+    with pytest.raises(ValueError, match="multiple of chunk"):
+        ssd_ops.ssd_scan(x[:, :40], dt[:, :40], A, B[:, :40], C[:, :40],
+                         chunk=16)
+    B2 = torch.stack([B, B], dim=2)
+    with pytest.raises(ValueError, match="one B/C group"):
+        ssd_ops.ssd(x, dt, A, B2, B2, chunk=16)
+    x48 = torch.zeros(1, 64, 2, 48, device=cuda)            # head dim 48
+    with pytest.raises(ValueError, match="unsupported"):
+        ssd_ops.ssd_scan(x48, dt, A, B, C, chunk=16)
+    B256 = torch.zeros(1, 64, 256, device=cuda)              # state 256
+    with pytest.raises(ValueError, match="unsupported"):
+        ssd_ops.ssd_scan(x, dt, A, B256, B256, chunk=16)
+    with pytest.raises(ValueError, match="unsupported"):
+        ssd_ops.ssd_scan(x, dt, A, B, C, chunk=8)
+    with pytest.raises(TypeError):
+        ssd_ops.ssd_scan(x, dt.double(), A, B, C, chunk=16)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_ops.ssd_scan(x.transpose(2, 3).contiguous().transpose(2, 3),
+                         dt, A, B, C, chunk=16)
+    assert ssd_ops.launches == before
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     q = torch.zeros(1, 2, 8, 48, device=cuda)          # head dim 48
     with pytest.raises(ValueError, match="unsupported"):
@@ -118,6 +190,28 @@ def test_model_decode_matches_forward_through_the_kernels(cuda):
                                atol=2e-3)
     assert fa_ops.launches == f0 + cfg.num_layers
     assert da_ops.launches == d0 + 24 * cfg.num_layers
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-7b"])
+def test_ssm_models_decode_matches_forward_through_the_kernels(cuda, arch):
+    cfg = smoke_config(arch).scaled(dtype="float32", attn_impl="pallas")
+    params = init_params(cfg, seed=0, device=cuda)
+    S = 2 * cfg.ssm_chunk                            # carries the state once
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, S))).to(cuda)
+    s0, d0, f0 = ssd_ops.launches, da_ops.launches, fa_ops.launches
+    ref, _, _ = forward(params, {"tokens": tokens}, cfg)
+    cache = init_cache(cfg, 2, S, device=cuda)
+    outs = []
+    for t in range(S):
+        logits, cache = decode_step(params, cache, tokens[:, t:t + 1], cfg)
+        outs.append(logits)
+    torch.testing.assert_close(torch.stack(outs, 1), ref, rtol=2e-3,
+                               atol=2e-3)
+    assert ssd_ops.launches == s0 + cfg.num_layers
+    slots = cfg.num_layers // cfg.attn_every if cfg.attn_every else 0
+    assert fa_ops.launches == f0 + slots
+    assert da_ops.launches == d0 + S * slots
 
 
 def test_engine_tokens_equal_with_kernels_and_plain(cuda):

@@ -126,10 +126,11 @@ def test_init_params_matches_the_reference_tree_and_distribution():
 
 
 def test_unported_families_and_impls_raise():
-    with pytest.raises(NotImplementedError, match="Mamba2"):
-        tm.init_params(smoke_config("mamba2-2.7b"), device="cpu")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tm.init_cache(smoke_config("kimi-k2-1t-a32b"), 1, 8, device="cpu")
+    for arch in ("kimi-k2-1t-a32b", "phi3.5-moe-42b-a6.6b"):
+        with pytest.raises(NotImplementedError, match="MoE"):
+            tm.init_params(smoke_config(arch), device="cpu")
+        with pytest.raises(NotImplementedError, match="MoE"):
+            tm.init_cache(smoke_config(arch), 1, 8, device="cpu")
     cfg, _, tp = _setup("smollm-360m")
     with pytest.raises(NotImplementedError, match="xla_chunked"):
         tm.forward(tp, {"tokens": torch.zeros(1, 4, dtype=torch.long)},

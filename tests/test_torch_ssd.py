@@ -1,0 +1,139 @@
+"""The port's SSD scan oracles against the JAX package's on the same
+inputs: the plain version of the CUDA kernel against the Pallas kernel (in
+interpret mode), the chunked algorithm and the sequential recurrence
+against theirs, and the CPU dispatch of the wrapper.  Shapes and
+tolerances are the reference's (tests/test_kernels.py)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.ssd_scan.kernel import ssd_scan as jax_ssd_scan
+from repro.kernels.ssd_scan.ref import ssd_sequential as jax_ssd_sequential
+from repro.models.mamba2 import ssd_chunked as jax_ssd_chunked
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref, ssd_sequential
+from repro_torch.models.mamba2 import ssd_chunked
+
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+TOL = {"float32": dict(rtol=1e-4, atol=1e-4),
+       "bfloat16": dict(rtol=3e-2, atol=3e-2)}
+
+SSD_SHAPES = [
+    # (b, s, h, p, n, chunk, head_block)
+    (1, 64, 4, 16, 16, 16, 4),
+    (2, 128, 8, 32, 32, 32, 4),
+    (1, 96, 2, 16, 64, 32, 2),
+    (1, 64, 8, 64, 16, 64, 8),     # single chunk boundary case
+]
+
+
+def _inputs(b, s, h, p, n, dtype, seed=0, dt_range=(0.001, 0.1),
+            a_range=(0.5, 2.0)):
+    """The reference's SSD test inputs (x, B, C normal in the model dtype,
+    dt and A uniform in f32), as (jax arrays, torch tensors)."""
+    rng = np.random.default_rng(seed)
+    jdt, tdt = DTYPES[dtype]
+    x = rng.standard_normal((b, s, h, p)).astype(np.float32)
+    dt = rng.uniform(*dt_range, (b, s, h)).astype(np.float32)
+    A = -rng.uniform(*a_range, (h,)).astype(np.float32)
+    B = rng.standard_normal((b, s, 1, n)).astype(np.float32)
+    C = rng.standard_normal((b, s, 1, n)).astype(np.float32)
+    j = (jnp.asarray(x, jdt), jnp.asarray(dt), jnp.asarray(A),
+         jnp.asarray(B, jdt), jnp.asarray(C, jdt))
+    t = (torch.from_numpy(x).to(tdt), torch.from_numpy(dt),
+         torch.from_numpy(A), torch.from_numpy(B).to(tdt),
+         torch.from_numpy(C).to(tdt))
+    return j, t
+
+
+def _close(port, ref, dtype):
+    np.testing.assert_allclose(port.float().numpy(),
+                               np.asarray(ref, np.float32), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", SSD_SHAPES)
+def test_ssd_scan_ref_matches_pallas_kernel(case, dtype):
+    b, s, h, p, n, chunk, hb = case
+    (jx, jdt, jA, jB, jC), (x, dt, A, B, C) = _inputs(b, s, h, p, n, dtype)
+    ref = jax_ssd_scan(jx, jdt, jA, jB[:, :, 0], jC[:, :, 0], chunk=chunk,
+                       head_block=hb, interpret=True)
+    port = ssd_scan_ref(x, dt, A, B[:, :, 0], C[:, :, 0], chunk)
+    assert port.dtype == x.dtype and port.shape == x.shape
+    _close(port, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", SSD_SHAPES)
+def test_ssd_chunked_matches_jax(case, dtype):
+    """y and the final state, with the reference's bf16 casts."""
+    b, s, h, p, n, chunk, _ = case
+    (jx, jdt, jA, jB, jC), (x, dt, A, B, C) = _inputs(b, s, h, p, n, dtype,
+                                                      seed=1)
+    jy, jstate = jax_ssd_chunked(jx, jdt, jA, jB, jC, chunk)
+    y, state = ssd_chunked(x, dt, A, B, C, chunk)
+    assert y.dtype == x.dtype and state.dtype == x.dtype
+    assert state.shape == (b, h, p, n)
+    _close(y, jy, dtype)
+    _close(state, jstate, dtype)
+
+
+@pytest.mark.parametrize("case", SSD_SHAPES)
+def test_ssd_sequential_matches_jax(case):
+    b, s, h, p, n, _, _ = case
+    (jx, jdt, jA, jB, jC), (x, dt, A, B, C) = _inputs(b, s, h, p, n,
+                                                      "float32", seed=2)
+    jy, jstate = jax_ssd_sequential(jx, jdt, jA, jB, jC)
+    y, state = ssd_sequential(x, dt, A, B, C)
+    _close(y, jy, "float32")
+    _close(state, jstate, "float32")
+
+
+@pytest.mark.parametrize("case", SSD_SHAPES)
+def test_ssd_scan_ref_matches_sequential(case):
+    b, s, h, p, n, chunk, _ = case
+    _, (x, dt, A, B, C) = _inputs(b, s, h, p, n, "float32", seed=3)
+    y_seq, _ = ssd_sequential(x, dt, A, B, C)
+    y = ssd_scan_ref(x, dt, A, B[:, :, 0], C[:, :, 0], chunk)
+    torch.testing.assert_close(y, y_seq, **TOL["float32"])
+
+
+def test_strong_decay_gives_finite_output():
+    """A = -16 and dt = 0.1 over a 128-row chunk: exp(cum_i - cum_j)
+    above the diagonal is +inf, which must be selected away, not
+    multiplied by 0 (that gives NaN)."""
+    b, s, h, p, n, chunk = 1, 256, 2, 16, 16, 128
+    _, (x, dt, A, B, C) = _inputs(b, s, h, p, n, "float32", seed=4,
+                                  dt_range=(0.1, 0.1), a_range=(16.0, 16.0))
+    cum = torch.cumsum(dt[0, :chunk, 0] * A[0], 0)
+    assert torch.isinf(torch.exp(cum[0] - cum[-1]))     # the trap is live
+    y = ssd_scan_ref(x, dt, A, B[:, :, 0], C[:, :, 0], chunk)
+    assert torch.isfinite(y).all()
+    y_seq, _ = ssd_sequential(x, dt, A, B, C)
+    torch.testing.assert_close(y, y_seq, **TOL["float32"])
+
+
+def test_wrapper_takes_the_plain_version_for_cpu_tensors():
+    ssd_ops.launches = 0
+    _, (x, dt, A, B, C) = _inputs(2, 64, 4, 16, 16, "bfloat16", seed=5)
+    y, none = ssd_ops.ssd(x, dt, A, B, C, chunk=16, head_block=2)
+    assert none is None
+    assert torch.equal(y, ssd_scan_ref(x, dt, A, B[:, :, 0], C[:, :, 0], 16))
+    assert torch.equal(y, ssd_ops.ssd(x, dt, A, B, C, chunk=16)[0])
+    assert ssd_ops.launches == 0
+
+
+def test_wrapper_raises_on_what_the_reference_refuses():
+    _, (x, dt, A, B, C) = _inputs(1, 48, 2, 16, 16, "float32", seed=6)
+    with pytest.raises(ValueError, match="multiple of chunk"):
+        ssd_ops.ssd(x, dt, A, B, C, chunk=32)
+    B2 = torch.cat([B, B], dim=2)
+    with pytest.raises(ValueError, match="one B/C group"):
+        ssd_ops.ssd(x, dt, A, B2, B2, chunk=16)
+    meta = [t.to("meta") for t in (x, dt, A, B[:, :, 0], C[:, :, 0])]
+    with pytest.raises(ValueError, match="no kernel"):
+        ssd_ops.ssd_scan(*meta, chunk=16)
+    assert ssd_ops.launches == 0
