@@ -6,26 +6,34 @@
 Phases, each printing its own lines; any failure raises and exits non-zero:
   1. device: the card's name, and its name and power limit from nvidia-smi;
   2. build: every CUDA source in src/repro_torch/csrc (decode_attention,
-     flash_attention, ssd_scan), one nvcc each, started together;
-  3. each kernel against its plain PyTorch version on the card, over the
-     reference's test shapes and the shapes of SmolLM-360M, Mamba2-2.7B
-     and Zamba2-7B, f32 and bf16;
+     flash_attention, flash_attention_wgmma, ssd_scan, ssd_scan_tc), one
+     nvcc each, started together;
+  3. each kernel variant against its plain PyTorch version on the card,
+     over the reference's test shapes and the shapes of SmolLM-360M,
+     DeepSeek-Coder-33B, Mamba2-2.7B and Zamba2-7B, f32 and bf16; each
+     case runs on the variant that `ops.variant` picks for it (flash:
+     wgmma for bf16 at hd 64/128, fma otherwise; ssd_scan: tc for bf16,
+     fma for f32);
   4. SmolLM-360M at full width in f32: token-by-token decode_step logits
-     (decode kernel) against the forward pass (flash kernel), within 2e-3;
+     (decode kernel) against the forward pass (flash fma kernel), 2e-3;
   5. serving: SmolLM-360M at full width in bf16, 8 slots, 16 requests;
-  6. Mamba2-2.7B at full width: f32 decode against forward (ssd_scan
+     then a bf16 prefill of B=2 x 2048 tokens (flash wgmma kernel),
+     timed, against the eager path;
+  6. Mamba2-2.7B at full width: f32 decode against forward (ssd_scan fma
      kernel), the f32 kernel engine against the plain engine, a bf16
-     prefill of 2048 tokens, and serving in bf16, 8 slots, 16 requests;
+     prefill of 2048 tokens (ssd_scan tc kernels), and serving in bf16,
+     8 slots, 16 requests;
   7. the hybrid: Zamba2-7B's widths cut to 12 layers (two shared-attention
-     slots), f32 decode against forward through all three kernels;
-  8. timings at the main paths' shapes: kernel, plain version, and one
-     PyTorch library call as a yardstick where one computes the same
-     function (the port never calls it).
+     slots), f32 decode against forward through the fma kernels;
+  8. timings at the main paths' shapes: each variant, its plain version,
+     and one PyTorch library call as a yardstick where one computes the
+     same function (the port never calls it).
 Phases 4-5, 6 and 7 are the three main paths.  The launch counters are
-zeroed just before each and read just after it; every kernel of a path
-must have launched there, and the JSON line's `launches` is a kernel's sum
-over the three.  The last two lines are a JSON object of per-kernel
-numbers and {"ok": true, "device": {...}}.
+zeroed just before each and read just after it; every kernel variant of a
+path must have launched there, and the JSON line's `launches` is a
+kernel's sum over the three (one ssd_scan tc call is three launches).
+The last two lines are a JSON object of per-kernel numbers, with a
+`variants` entry per kernel, and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -49,7 +57,6 @@ from repro_torch.kernels.decode_attention import ops as da_ops  # noqa: E402
 from repro_torch.kernels.decode_attention.ref import \
     decode_attention_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
-from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref  # noqa: E402
 from repro_torch.models import (decode_step, forward, init_cache,  # noqa: E402
@@ -88,7 +95,14 @@ FLASH_CASES = [
     (2, 15, 5, 2048, 2048, 64, True, 256),
     (2, 32, 32, 256, 256, 112, True, 32768),
     (1, 32, 32, 512, 512, 112, True, 128),
+    (1, 56, 8, 2048, 2048, 128, True, 0),       # DeepSeek-Coder-33B's heads
+    (1, 4, 2, 130, 130, 128, True, 40), (1, 2, 2, 48, 16, 64, False, 8),
 ]
+SMOLLM_FLASH = (2, 15, 5, 2048, 2048, 64, True, 0)
+# the eager path rounds scores to bf16 before its softmax (up to ~2 % per
+# probability at |s| ~ 8) where the kernel keeps them f32; 32 layers
+# compound that.  A mis-masked or mis-scaled tile moves logits by O(1).
+PREFILL_REL_LIMIT = 0.1
 # (b, s, h, p, n, chunk, strong decay): the reference's SSD_SHAPES,
 # Mamba2-2.7B's and Zamba2-7B's shapes, and A = -16, dt = 0.1, where
 # exp(cum_i - cum_j) above the diagonal overflows to +inf
@@ -196,28 +210,34 @@ def check_kernels(device) -> None:
         for case in FLASH_CASES:
             q, k, v = flash_inputs(case, dtype, device)
             causal, window = case[6], case[7]
+            var = fa_ops.variant(dtype, case[5])
             out = fa_ops.flash_attention_bhsd(q, k, v, causal=causal,
                                               window=window)
-            ref = attention_ref(q, k, v, causal=causal, window=window)
+            ref = fa_ops.PLAIN[var](q, k, v, causal=causal, window=window)
             torch.cuda.synchronize()
             tol = TOL_LONG_F32 if dname == "f32" and case[3] >= 2000 \
                 else TOL[dname]
-            err = compare(f"flash {case} {dname}", out, ref, tol)
-            log("kernel", f"flash_attention {dname} (B,H,Hkv,Sq,Sk,hd,causal,"
-                f"win)={case}: max_abs_err {err:.3g} "
+            err = compare(f"flash {var} {case} {dname}", out, ref, tol)
+            log("kernel", f"flash_attention {var} {dname} (B,H,Hkv,Sq,Sk,hd,"
+                f"causal,win)={case}: max_abs_err {err:.3g} "
                 f"(rtol = atol = {tol})")
         for case in SSD_CASES:
             x, dt, A, B, C = ssd_inputs(case, dtype, device)
+            var = ssd_ops.variant(dtype, case[3], case[4], case[5])
             y = ssd_ops.ssd_scan(x, dt, A, B, C, chunk=case[5])
-            ref = ssd_scan_ref(x, dt, A, B, C, case[5])
+            ref = ssd_ops.PLAIN[var](x, dt, A, B, C, case[5])
             torch.cuda.synchronize()
             if not torch.isfinite(y.float()).all():
                 raise AssertionError(f"ssd_scan {case} {dname}: non-finite")
-            err = compare(f"ssd {case} {dname}", y, ref, SSD_TOL[dname])
-            log("kernel", f"ssd_scan {dname} (b,s,h,p,n,chunk,strong)="
+            err = compare(f"ssd {var} {case} {dname}", y, ref,
+                          SSD_TOL[dname])
+            f32_alg = float((y.float() - ssd_scan_ref(x, dt, A, B, C, case[5])
+                             .float()).abs().max())
+            log("kernel", f"ssd_scan {var} {dname} (b,s,h,p,n,chunk,strong)="
                 f"{case}: max_abs_err {err:.3g} "
                 f"(rtol = atol = {SSD_TOL[dname]}, "
-                f"max |ref| {float(ref.float().abs().max()):.3g})")
+                f"max |ref| {float(ref.float().abs().max()):.3g}; "
+                f"against the f32 algorithm {f32_alg:.3g})")
 
 
 # ---------------------------------------------------------------------------
@@ -307,13 +327,20 @@ def engines_agree(cfg32, params32, device):
 
 
 def zero_launches() -> None:
-    da_ops.launches = fa_ops.launches = ssd_ops.launches = 0
+    da_ops.launches = 0
+    fa_ops.zero_launches()
+    ssd_ops.zero_launches()
 
 
 def read_launches(path: str, needed) -> dict:
-    got = {"decode_attention": da_ops.launches,
-           "flash_attention": fa_ops.launches,
-           "ssd_scan": ssd_ops.launches}
+    """Launches per kernel variant ("flash_attention.wgmma", ...) since
+    the last zero_launches; every variant in `needed` must have run."""
+    got = {"decode_attention.fma": da_ops.launches}
+    for name, mod in (("flash_attention", fa_ops), ("ssd_scan", ssd_ops)):
+        for var, n in mod.launches_by_variant.items():
+            got[f"{name}.{var}"] = n
+        if sum(mod.launches_by_variant.values()) != mod.launches:
+            raise AssertionError(f"{name}: variant counts do not sum")
     log(path, f"launches on this path: {got}")
     for name in needed:
         if got[name] <= 0:
@@ -358,7 +385,68 @@ def smollm_path(device):
     toks = engines_agree(cfg32, params32, device)
     log("serve", f"smollm-360m f32 kernel engine tokens == plain engine "
         f"tokens: {toks}")
-    return min(int(eng.cache["pos"]), 512)
+    dec_len = min(int(eng.cache["pos"]), 512)
+    del params32, eng
+    free()
+    wall, rel, agree = timed_prefill(cfg16, params16, device, seed=3)
+    log("prefill", f"smollm-360m full width bf16 B=2 S=2048: "
+        f"{1e3 * wall:.3f} ms, {2 * 2048 / wall:.1f} prompt tokens/s; "
+        f"against the eager path (bf16 scores, f32 softmax): max |diff| / "
+        f"max |logit| {rel:.3g} (limit {PREFILL_REL_LIMIT}), top-1 "
+        f"agreement {agree}")
+    if rel > PREFILL_REL_LIMIT:
+        raise AssertionError(f"prefill kernel vs eager: relative {rel}")
+    return dec_len
+
+
+def timed_prefill(cfg16, params16, device, seed, S=2048):
+    """A warm-up and a timed bf16 prefill of B=2 x S tokens through the
+    kernels, then the eager path's on the same tokens.  Returns (seconds,
+    max |diff| / max |logit|, top-1 agreement)."""
+    tokens = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg16.vocab_size, (2, S))).to(device)
+    prefill(params16, {"tokens": tokens}, cfg16, S)   # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    last = prefill(params16, {"tokens": tokens}, cfg16, S)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    plain = prefill(params16, {"tokens": tokens},
+                    cfg16.scaled(attn_impl="xla"), S)
+    if last.shape != (2, cfg16.vocab_size) or not torch.isfinite(last).all():
+        raise AssertionError(f"prefill logits {tuple(last.shape)} not finite")
+    rel = float((last - plain).abs().max() / plain.abs().max())
+    agree = float((last.argmax(-1) == plain.argmax(-1)).float().mean())
+    where_the_time_goes(cfg16, params16, tokens, S)
+    return wall, rel, agree
+
+
+def where_the_time_goes(cfg, params, tokens, S, top=8):
+    """One more prefill under torch.profiler: the device's busy time (sum
+    of the kernels' times) against the call's wall time, and the kernels
+    that take the most.  The profiler slows the host, so the idle share
+    printed is an upper bound for an unprofiled call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        prefill(params, {"tokens": tokens}, cfg, S)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) \
+            or getattr(e, "self_cuda_time_total", 0.0)
+    # kernels only: an operator's device time repeats its kernels'
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+    busy_ms = sum(dev_us(e) for e in events) / 1e3
+    parts = ", ".join(f"{e.key[:48]} {dev_us(e) / 1e3:.3f} ms x{e.count}"
+                      for e in sorted(events, key=dev_us, reverse=True)[:top])
+    log("prefill", f"{cfg.name} where the time goes (profiled call, "
+        f"{wall_ms:.3f} ms wall): device busy {busy_ms:.3f} ms, idle share "
+        f"{max(0.0, 1 - busy_ms / wall_ms):.3f}; top kernels: {parts}")
 
 
 # ---------------------------------------------------------------------------
@@ -384,20 +472,7 @@ def mamba2_path(device):
     params16 = init_params(cfg16, seed=0, device=device)
     weight_bytes = sum(t.numel() * t.element_size()
                        for t in leaves(params16))
-    tokens = torch.from_numpy(np.random.default_rng(2).integers(
-        0, cfg16.vocab_size, (2, 2048))).to(device)
-    prefill(params16, {"tokens": tokens}, cfg16, 2048)   # warm-up
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    last = prefill(params16, {"tokens": tokens}, cfg16, 2048)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    plain = prefill(params16, {"tokens": tokens},
-                    cfg16.scaled(attn_impl="xla"), 2048)
-    if last.shape != (2, cfg16.vocab_size) or not torch.isfinite(last).all():
-        raise AssertionError(f"prefill logits {tuple(last.shape)} not finite")
-    rel = float((last - plain).abs().max() / plain.abs().max())
-    agree = float((last.argmax(-1) == plain.argmax(-1)).float().mean())
+    wall, rel, agree = timed_prefill(cfg16, params16, device, seed=2)
     log("mamba2", f"prefill bf16 B=2 S=2048: {1e3 * wall:.3f} ms, "
         f"{2 * 2048 / wall:.1f} tokens/s; against the eager path (bf16 "
         f"casts of ssd_chunked): max |diff| / max |logit| {rel:.3g} "
@@ -458,14 +533,17 @@ def time_decode(case, dtype, device):
                 bound_by=b_by, library_ms=library)
 
 
-def time_ssd(case, dtype, device, iters=20):
+def time_ssd(case, dtype, device, var, iters=20):
+    """One ssd_scan variant at `case`, launched directly (so a variant can
+    be timed outside its dispatch, as the fma kernel in bf16 for the
+    earlier time), against that variant's plain version."""
     b, s, h, p, n, q, _ = case
     x, dt, A, B, C = ssd_inputs(case, dtype, device, seed=1)
-    y = ssd_ops.ssd_scan(x, dt, A, B, C, chunk=q)
-    err = compare("ssd timing shape", y, ssd_scan_ref(x, dt, A, B, C, q),
+    y = ssd_ops._launch(var, x, dt, A, B, C, q)
+    err = compare("ssd timing shape", y, ssd_ops.PLAIN[var](x, dt, A, B, C, q),
                   SSD_TOL["f32" if dtype == torch.float32 else "bf16"])
-    ms = cuda_ms(lambda: ssd_ops.ssd_scan(x, dt, A, B, C, chunk=q), iters)
-    plain = cuda_ms(lambda: ssd_scan_ref(x, dt, A, B, C, q), 5)
+    ms = cuda_ms(lambda: ssd_ops._launch(var, x, dt, A, B, C, q), iters)
+    plain = cuda_ms(lambda: ssd_ops.PLAIN[var](x, dt, A, B, C, q), 5)
     elt = x.element_size()
     nbytes = elt * (2 * b * s * h * p + 2 * b * s * n) + 4 * (b * s * h + h)
     nc = s // q
@@ -478,14 +556,14 @@ def time_ssd(case, dtype, device, iters=20):
                 bound_by=b_by, library_ms=None)
 
 
-def time_flash(case, dtype, device, iters=50):
+def time_flash(case, dtype, device, var, iters=50):
     B, H, Hkv, S, _, hd, causal, window = case
     q, k, v = flash_inputs(case, dtype, device, seed=1)
-    out = fa_ops.flash_attention_bhsd(q, k, v, causal=causal)
-    err = compare("flash timing shape", out, attention_ref(q, k, v),
+    out = fa_ops._launch(var, q, k, v, True, 0)
+    err = compare("flash timing shape", out, fa_ops.PLAIN[var](q, k, v),
                   TOL_LONG_F32 if dtype == torch.float32 else TOL["bf16"])
-    ms = cuda_ms(lambda: fa_ops.flash_attention_bhsd(q, k, v), iters)
-    plain = cuda_ms(lambda: attention_ref(q, k, v), max(5, iters // 5))
+    ms = cuda_ms(lambda: fa_ops._launch(var, q, k, v, True, 0), iters)
+    plain = cuda_ms(lambda: fa_ops.PLAIN[var](q, k, v), max(5, iters // 5))
     library = cuda_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=True, enable_gqa=True), iters)
     elt = q.element_size()
@@ -494,26 +572,6 @@ def time_flash(case, dtype, device, iters=50):
     b_ms, b_by = bound(nbytes, flops, dtype)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
                 bound_by=b_by, library_ms=library)
-
-
-def time_ssd(case, dtype, device, iters=20):
-    b, s, h, p, n, q, _ = case
-    x, dt, A, B, C = ssd_inputs(case, dtype, device, seed=1)
-    y = ssd_ops.ssd_scan(x, dt, A, B, C, chunk=q)
-    err = compare("ssd timing shape", y, ssd_scan_ref(x, dt, A, B, C, q),
-                  SSD_TOL["f32" if dtype == torch.float32 else "bf16"])
-    ms = cuda_ms(lambda: ssd_ops.ssd_scan(x, dt, A, B, C, chunk=q), iters)
-    plain = cuda_ms(lambda: ssd_scan_ref(x, dt, A, B, C, q), 5)
-    elt = x.element_size()
-    nbytes = elt * (2 * b * s * h * p + 2 * b * s * n) + 4 * (b * s * h + h)
-    nc = s // q
-    # per (b, head, chunk) C.(state), (weighted x)^T B and M x; per
-    # (b, chunk) one C B^T shared by the heads
-    flops = b * h * nc * 3 * 2 * q * q * p + b * nc * 2 * q * q * n
-    b_ms, b_by = bound(nbytes, flops, dtype)
-    # no single PyTorch call computes the SSD scan
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None)
 
 
 def main() -> int:
@@ -541,8 +599,12 @@ def main() -> int:
         (_build.BUILD_DIR / f"{name}.ptxas.log").write_text(text)
         spills = [ln.strip() for ln in text.splitlines()
                   if "spill" in ln and " 0 bytes spill stores" not in ln]
-        log("build", f"{name}: {len(spills)} ptxas lines with spills "
-            f"(log in build/torch_kernels/{name}.ptxas.log)")
+        # ptxas's C751x/C752x notes: it serialized the kernel's wgmma
+        serial = [ln for ln in text.splitlines()
+                  if "wgmma.mma_async instructions are serialized" in ln]
+        log("build", f"{name}: {len(spills)} ptxas lines with spills, "
+            f"{len(serial)} with serialized wgmma (log in "
+            f"build/torch_kernels/{name}.ptxas.log)")
 
     t0 = time.perf_counter()
     check_kernels(device)
@@ -551,10 +613,13 @@ def main() -> int:
     # -- the main paths: the counters are zeroed before each, read after ---
     paths = {}
     for path, run, needed in (
-            ("smollm", smollm_path, ("decode_attention", "flash_attention")),
-            ("mamba2", mamba2_path, ("ssd_scan",)),
+            ("smollm", smollm_path,
+             ("decode_attention.fma", "flash_attention.fma",
+              "flash_attention.wgmma")),
+            ("mamba2", mamba2_path, ("ssd_scan.fma", "ssd_scan.tc")),
             ("hybrid", hybrid_path,
-             ("decode_attention", "flash_attention", "ssd_scan"))):
+             ("decode_attention.fma", "flash_attention.fma",
+              "ssd_scan.fma"))):
         t0 = time.perf_counter()
         zero_launches()
         out = run(device)
@@ -565,43 +630,83 @@ def main() -> int:
         log(path, f"path took {time.perf_counter() - t0:.1f} s")
     launches = {k: sum(p[k] for p in paths.values())
                 for k in paths["smollm"]}
-
-    # -- timings --------------------------------------------------------------
-    dec = time_decode((8, 15, 5, 512, 64, dec_len, 0), torch.bfloat16, device)
-    fla = time_flash((2, 15, 5, 64, 64, 64, True, 0), torch.float32, device,
-                     iters=200)
-    log("timing", f"decode_attention bf16 B=8 H=15 Hkv=5 T=512 hd=64 "
-        f"len={dec_len}: {dec}")
-    log("timing", f"flash_attention f32 B=2 H=15 Hkv=5 S=64 hd=64 causal: "
-        f"{fla}")
-    for length in (1, 200, 512):
-        log("timing", f"decode_attention bf16 len={length}: " + str(
-            time_decode((8, 15, 5, 512, 64, length, 0), torch.bfloat16,
-                        device)))
-    for dtype in (torch.bfloat16, torch.float32):
-        log("timing", f"flash_attention {dtype} B=2 H=15 Hkv=5 S=2048 hd=64 "
-            "causal: " + str(time_flash((2, 15, 5, 2048, 2048, 64, True, 0),
-                                        dtype, device, iters=20)))
-    ssd = time_ssd(MAMBA_SHAPE, torch.bfloat16, device)
-    log("timing", f"ssd_scan bf16 b=2 s=2048 h=80 p=64 n=128 chunk=128: "
-        f"{ssd}; library: none (no single PyTorch call computes the scan)")
-    log("timing", "ssd_scan f32 b=2 s=2048 h=80 p=64 n=128 chunk=128: "
-        + str(time_ssd(MAMBA_SHAPE, torch.float32, device)))
     log("timing", f"main-path launches per path: {paths}")
 
+    # -- timings --------------------------------------------------------------
+    bf16, f32 = torch.bfloat16, torch.float32
+    dec = time_decode((8, 15, 5, 512, 64, dec_len, 0), bf16, device)
+    log("timing", f"decode_attention bf16 B=8 H=15 Hkv=5 T=512 hd=64 "
+        f"len={dec_len}: {dec}")
+    for length in (1, 200, 512):
+        log("timing", f"decode_attention bf16 len={length}: " + str(
+            time_decode((8, 15, 5, 512, 64, length, 0), bf16, device)))
+    # flash: the wgmma variant at SmolLM's bf16 prefill shape; the fma
+    # variant at its own main-path shape (f32, phase 4's S=64) and, for the
+    # time before the redesign, at the bf16 prefill shape
+    fla = time_flash(SMOLLM_FLASH, bf16, device, "wgmma", iters=50)
+    log("timing", f"flash_attention wgmma bf16 B=2 H=15 Hkv=5 S=2048 hd=64 "
+        f"causal: {fla}")
+    fla_fma = time_flash((2, 15, 5, 64, 64, 64, True, 0), f32, device, "fma",
+                         iters=200)
+    log("timing", f"flash_attention fma f32 B=2 H=15 Hkv=5 S=64 hd=64 "
+        f"causal: {fla_fma}")
+    for dtype in (bf16, f32):
+        log("timing", f"flash_attention fma {dtype} B=2 H=15 Hkv=5 S=2048 "
+            "hd=64 causal (bf16: the time before the redesign): " + str(
+                time_flash(SMOLLM_FLASH, dtype, device, "fma", iters=20)))
+    log("timing", "flash_attention wgmma bf16 B=1 H=56 Hkv=8 S=2048 hd=128 "
+        "causal (DeepSeek-Coder-33B's heads): " + str(time_flash(
+            (1, 56, 8, 2048, 2048, 128, True, 0), bf16, device, "wgmma",
+            iters=20)))
+    # ssd_scan: tc at Mamba2's bf16 prefill shape (three launches); fma in
+    # f32 at the same shape and, for the time before the redesign, in bf16
+    ssd = time_ssd(MAMBA_SHAPE, bf16, device, "tc")
+    log("timing", f"ssd_scan tc bf16 b=2 s=2048 h=80 p=64 n=128 chunk=128 "
+        f"(three launches): {ssd}; library: none (no single PyTorch call "
+        "computes the scan)")
+    ssd_fma = time_ssd(MAMBA_SHAPE, f32, device, "fma")
+    log("timing", f"ssd_scan fma f32 b=2 s=2048 h=80 p=64 n=128 chunk=128: "
+        f"{ssd_fma}")
+    log("timing", "ssd_scan fma bf16 b=2 s=2048 h=80 p=64 n=128 chunk=128 "
+        "(the time before the redesign): "
+        + str(time_ssd(MAMBA_SHAPE, bf16, device, "fma")))
+
+    def variant(name, var, source, shape, timing):
+        return dict(source=f"src/repro_torch/csrc/{source}",
+                    launches=launches[f"{name}.{var}"], shape=shape,
+                    **timing)
+
+    fa_vars = {
+        "wgmma": variant("flash_attention", "wgmma",
+                         "flash_attention_wgmma.cu",
+                         "bf16 B=2 H=15 Hkv=5 S=2048 hd=64 causal", fla),
+        "fma": variant("flash_attention", "fma", "flash_attention.cu",
+                       "f32 B=2 H=15 Hkv=5 S=64 hd=64 causal", fla_fma)}
+    ssd_vars = {
+        "tc": variant("ssd_scan", "tc", "ssd_scan_tc.cu",
+                      "bf16 b=2 s=2048 h=80 p=64 n=128 chunk=128", ssd),
+        "fma": variant("ssd_scan", "fma", "ssd_scan.cu",
+                       "f32 b=2 s=2048 h=80 p=64 n=128 chunk=128", ssd_fma)}
+    da_vars = {"fma": variant("decode_attention", "fma",
+                              "decode_attention.cu",
+                              f"bf16 B=8 H=15 Hkv=5 T=512 hd=64 "
+                              f"len={dec_len}", dec)}
     kernels = [
         dict(name="decode_attention", route="cuda",
              source="src/repro_torch/csrc/decode_attention.cu",
              replaces="src/repro/kernels/decode_attention/kernel.py:67",
-             launches=launches["decode_attention"], **dec),
+             launches=launches["decode_attention.fma"], **dec,
+             variants=da_vars),
         dict(name="flash_attention", route="cuda",
-             source="src/repro_torch/csrc/flash_attention.cu",
+             source="src/repro_torch/csrc/flash_attention_wgmma.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:88",
-             launches=launches["flash_attention"], **fla),
+             launches=sum(v["launches"] for v in fa_vars.values()), **fla,
+             variants=fa_vars),
         dict(name="ssd_scan", route="cuda",
-             source="src/repro_torch/csrc/ssd_scan.cu",
+             source="src/repro_torch/csrc/ssd_scan_tc.cu",
              replaces="src/repro/kernels/ssd_scan/kernel.py:76",
-             launches=launches["ssd_scan"], **ssd),
+             launches=sum(v["launches"] for v in ssd_vars.values()), **ssd,
+             variants=ssd_vars),
     ]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,35 +1,71 @@
 """SSD scan wrapper: the device of the tensors picks the path.
 
-CPU tensors take the plain version (`ref.py`).  CUDA tensors launch the
-hand-written kernel `csrc/ssd_scan.cu`, or raise; nothing falls back.
-`launches` counts kernel launches.
+`variant` picks a kernel from the dtype and shape, deterministically:
+- "tc": bf16, `csrc/ssd_scan_tc.cu` (three launches: chunk states, state
+  passing, chunk scan; chunk-parallel, products on the tensor cores);
+- "fma": f32, `csrc/ssd_scan.cu` (one launch; one block per (b, head)
+  walking the chunks, f32 FMAs);
+for head dims in `HEAD_DIMS`, states in `STATES` and chunks in `CHUNKS`,
+and raises on anything else.  CPU tensors take the variant's plain
+version (`PLAIN`, from `ref.py`).  CUDA tensors launch the variant's
+hand-written kernels, or raise; nothing falls back.
+`launches_by_variant` counts each variant's kernel launches, `launches`
+their sum.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from .. import _build
-from .ref import ssd_scan_ref
+from .ref import ssd_scan_chunked, ssd_scan_ref
 
-launches = 0
-
-# what csrc/ssd_scan.cu is written for
+# what both kernels are written for
 HEAD_DIMS = (16, 32, 64)
 STATES = (16, 32, 64, 128)
 CHUNKS = (16, 32, 64, 128)
+SOURCES = {"tc": "ssd_scan_tc", "fma": "ssd_scan"}
+LAUNCHES_PER_CALL = {"tc": 3, "fma": 1}
+PLAIN = {"tc": functools.partial(ssd_scan_chunked, bf16_points=True),
+         "fma": ssd_scan_ref}
 
-_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
-             + [ctypes.c_void_p])
+launches = 0
+launches_by_variant = {name: 0 for name in SOURCES}
+
+_ARGTYPES = {
+    "fma": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+    "tc": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+}
+
+
+def variant(dtype: torch.dtype, p: int, n: int, chunk: int) -> str:
+    """The kernel that scans x of this dtype, head dim p, state n and
+    chunk length."""
+    if p not in HEAD_DIMS or n not in STATES or chunk not in CHUNKS:
+        raise ValueError(f"ssd_scan: unsupported head dim {p}, state {n} "
+                         f"or chunk {chunk}")
+    if dtype == torch.bfloat16:
+        return "tc"
+    if dtype == torch.float32:
+        return "fma"
+    raise TypeError(f"ssd_scan: no kernel for dtype {dtype}")
+
+
+def zero_launches() -> None:
+    global launches
+    launches = 0
+    for name in launches_by_variant:
+        launches_by_variant[name] = 0
 
 
 def ssd(x, dt, A, B, C, *, chunk: int = 128, head_block: int = 8):
     """x: (b,s,h,p); dt: (b,s,h); A: (h,); B/C: (b,s,g,n) with g == 1.
     Returns (y, None): decode keeps its own state path.  `head_block` is
     the TPU kernel's tiling of heads; it does not change the result and is
-    accepted and ignored (the CUDA kernel runs one block per head)."""
+    accepted and ignored (the CUDA kernels choose their own)."""
     if B.dim() != 4 or B.shape[2] != 1 or C.shape != B.shape:
         raise ValueError(f"ssd: the kernel takes one B/C group, got "
                          f"B{tuple(B.shape)} C{tuple(C.shape)}")
@@ -44,12 +80,13 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if x.dim() != 4 or x.shape[1] % chunk:
         raise ValueError(f"ssd_scan: sequence of x{tuple(x.shape)} must be "
                          f"a multiple of chunk {chunk}")
+    var = variant(x.dtype, x.shape[-1], B.shape[-1], chunk)
     if x.device.type == "cpu":
-        return ssd_scan_ref(x, dt, A, B, C, chunk)
-    return _launch(x, dt, A, B, C, chunk)
+        return PLAIN[var](x, dt, A, B, C, chunk)
+    return _launch(var, x, dt, A, B, C, chunk)
 
 
-def _launch(x, dt, A, B, C, chunk):
+def _launch(var, x, dt, A, B, C, chunk):
     global launches
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan: no kernel for {x.device}")
@@ -60,13 +97,10 @@ def _launch(x, dt, A, B, C, chunk):
         raise ValueError(f"ssd_scan: bad shapes x{tuple(x.shape)} "
                          f"dt{tuple(dt.shape)} A{tuple(A.shape)} "
                          f"B{tuple(B.shape)} C{tuple(C.shape)}")
-    if p not in HEAD_DIMS or n not in STATES or chunk not in CHUNKS \
-            or b * h > 2 ** 31 - 1:
-        raise ValueError(f"ssd_scan: unsupported head dim {p}, state {n} "
-                         f"or chunk {chunk}")
-    if x.dtype not in _build.DTYPE_CODE or B.dtype != x.dtype \
-            or C.dtype != x.dtype or dt.dtype != torch.float32 \
-            or A.dtype != torch.float32:
+    if b * h > 2 ** 31 - 1 or (var == "tc" and (h + 9) // 10 > 65535):
+        raise ValueError(f"ssd_scan: unsupported batch {b} x heads {h}")
+    if B.dtype != x.dtype or C.dtype != x.dtype \
+            or dt.dtype != torch.float32 or A.dtype != torch.float32:
         raise TypeError(f"ssd_scan: dtypes x {x.dtype}, dt {dt.dtype}, "
                         f"A {A.dtype}, B {B.dtype}, C {C.dtype}")
     for t in (x, dt, A, B, C):
@@ -74,14 +108,25 @@ def _launch(x, dt, A, B, C, chunk):
             raise ValueError("ssd_scan: tensors must be contiguous and on "
                              "one device")
     y = torch.empty_like(x)
-    lib = _build.load("ssd_scan")
-    fn = lib.ssd_scan_launch
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    lib = _build.load(SOURCES[var])
+    fn = getattr(lib, f"{SOURCES[var]}_launch")
+    fn.argtypes, fn.restype = _ARGTYPES[var], ctypes.c_int
+    if var == "tc":
+        # workspace: cum, each chunk's state contribution, entering states
+        nc = s // chunk
+        work = [torch.empty((b, s, h), dtype=torch.float32, device=x.device),
+                torch.empty((b, nc, h, p, n), dtype=torch.float32,
+                            device=x.device),
+                torch.empty((b, nc, h, p, n), dtype=torch.bfloat16,
+                            device=x.device)]
+        args = [t.data_ptr() for t in work]
+    else:
+        args = [_build.DTYPE_CODE[x.dtype]]
     with torch.cuda.device(x.device):
         status = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-                    C.data_ptr(), y.data_ptr(), _build.DTYPE_CODE[x.dtype],
-                    b, s, h, p, n, chunk,
+                    C.data_ptr(), y.data_ptr(), *args, b, s, h, p, n, chunk,
                     torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(lib, status, "ssd_scan")
-    launches += 1
+    _build.check(lib, status, f"ssd_scan ({var})")
+    launches_by_variant[var] += LAUNCHES_PER_CALL[var]
+    launches += LAUNCHES_PER_CALL[var]
     return y

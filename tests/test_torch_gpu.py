@@ -10,10 +10,9 @@ from repro_torch.configs import smoke_config
 from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention import ops as fa_ops
-from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
-from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
-from repro_torch.models import decode_step, forward, init_cache, init_params
+from repro_torch.models import (decode_step, forward, init_cache, init_params,
+                                prefill)
 from repro_torch.serve.engine import Request, ServeConfig, ServingEngine
 
 pytestmark = pytest.mark.gpu
@@ -73,13 +72,82 @@ def test_flash_kernel_matches_plain(cuda, case, dtype):
     q = _randn(gen, (B, H, Sq, hd), DTYPES[dtype], cuda)
     k = _randn(gen, (B, Hkv, Sk, hd), DTYPES[dtype], cuda)
     v = _randn(gen, (B, Hkv, Sk, hd), DTYPES[dtype], cuda)
-    before = fa_ops.launches
+    var = fa_ops.variant(DTYPES[dtype], hd)
+    before, by_var = fa_ops.launches, fa_ops.launches_by_variant[var]
     out = fa_ops.flash_attention_bhsd(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert fa_ops.launches == before + 1
-    ref = attention_ref(q, k, v, causal=causal, window=window)
+    assert fa_ops.launches_by_variant[var] == by_var + 1
+    ref = fa_ops.PLAIN[var](q, k, v, causal=causal, window=window)
     torch.testing.assert_close(out.float(), ref.float(), rtol=TOL[dtype],
                                atol=TOL[dtype])
+
+
+# (B, H, Hkv, Sq, Sk, hd, causal, window): bf16 cases of the wgmma kernel,
+# hd 64 and 128, GQA, ragged Sq / Sk, windows, and rows with no visible key
+WGMMA_CASES = [
+    (2, 15, 5, 2048, 2048, 64, True, 0), (2, 15, 5, 2000, 2000, 64, True, 0),
+    (2, 15, 5, 2048, 2048, 64, True, 256), (1, 56, 8, 2048, 2048, 128, True,
+                                            0),
+    (1, 4, 2, 130, 130, 128, True, 40), (1, 6, 2, 300, 200, 128, False, 0),
+    (1, 4, 4, 200, 300, 64, True, 0), (1, 2, 2, 48, 16, 64, False, 8),
+    (1, 2, 1, 40, 40, 128, False, 8), (3, 8, 8, 1, 77, 64, False, 0),
+]
+
+
+@pytest.mark.parametrize("case", WGMMA_CASES)
+def test_flash_wgmma_kernel_matches_plain(cuda, case):
+    B, H, Hkv, Sq, Sk, hd, causal, window = case
+    assert fa_ops.variant(torch.bfloat16, hd) == "wgmma"
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    q = _randn(gen, (B, H, Sq, hd), torch.bfloat16, cuda)
+    k = _randn(gen, (B, Hkv, Sk, hd), torch.bfloat16, cuda)
+    v = _randn(gen, (B, Hkv, Sk, hd), torch.bfloat16, cuda)
+    before = fa_ops.launches_by_variant["wgmma"]
+    out = fa_ops.flash_attention_bhsd(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa_ops.launches_by_variant["wgmma"] == before + 1
+    assert torch.isfinite(out.float()).all()
+    ref = fa_ops.PLAIN["wgmma"](q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2,
+                               atol=2e-2)
+    if not causal and window and Sq > Sk + window - 1:   # no visible key
+        dead = out[:, :, Sk + window - 1:]
+        assert torch.equal(dead, torch.zeros_like(dead))
+
+
+@pytest.mark.parametrize("arch", ["smollm-360m", "mamba2-2.7b", "zamba2-7b"])
+def test_bf16_prefill_launches_each_variant(cuda, arch):
+    """A bf16 prefill of each family: dense at head dim 64 through the
+    wgmma flash kernel, Mamba2 through the tensor-core scan (three
+    launches a layer), the hybrid through both the tensor-core scan and
+    (head dim 32) the FMA flash kernel."""
+    extra = {"head_dim": 64} if arch == "smollm-360m" else {}
+    cfg = smoke_config(arch).scaled(dtype="bfloat16", attn_impl="pallas",
+                                    **extra)
+    params = init_params(cfg, seed=0, device=cuda)
+    S = 2 * cfg.ssm_chunk if cfg.family != "dense" else 100
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, S))).to(cuda)
+    fa_ops.zero_launches()
+    ssd_ops.zero_launches()
+    logits = prefill(params, {"tokens": tokens}, cfg, S)
+    torch.cuda.synchronize()
+    assert logits.shape == (2, cfg.vocab_size)
+    assert torch.isfinite(logits).all()
+    plain = prefill(params, {"tokens": tokens}, cfg.scaled(attn_impl="xla"),
+                    S)
+    rel = float((logits - plain).abs().max() / plain.abs().max())
+    assert rel < 0.1
+    slots = cfg.num_layers // cfg.attn_every if cfg.attn_every else 0
+    expected_fa = {"dense": {"wgmma": cfg.num_layers, "fma": 0},
+                   "ssm": {"wgmma": 0, "fma": 0},
+                   "hybrid": {"wgmma": 0, "fma": slots}}[cfg.family]
+    ssd_layers = cfg.num_layers if cfg.family != "dense" else 0
+    assert fa_ops.launches_by_variant == expected_fa
+    assert ssd_ops.launches_by_variant == {"tc": 3 * ssd_layers, "fma": 0}
+    assert fa_ops.launches == sum(expected_fa.values())
+    assert ssd_ops.launches == 3 * ssd_layers
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
@@ -123,13 +191,17 @@ def ssd_inputs(case, dtype, device, seed=0):
 @pytest.mark.parametrize("case", SSD_CASES)
 def test_ssd_kernel_matches_plain(cuda, case, dtype):
     x, dt, A, B, C = ssd_inputs(case, DTYPES[dtype], cuda)
-    before = ssd_ops.launches
+    var = ssd_ops.variant(DTYPES[dtype], case[3], case[4], case[5])
+    assert var == ("tc" if dtype == "bfloat16" else "fma")
+    before, by_var = ssd_ops.launches, ssd_ops.launches_by_variant[var]
     y, _ = ssd_ops.ssd(x, dt, A, B[:, :, None], C[:, :, None],
                        chunk=case[5])
     torch.cuda.synchronize()
-    assert ssd_ops.launches == before + 1
+    n = ssd_ops.LAUNCHES_PER_CALL[var]
+    assert ssd_ops.launches == before + n
+    assert ssd_ops.launches_by_variant[var] == by_var + n
     assert y.dtype == x.dtype and torch.isfinite(y.float()).all()
-    ref = ssd_scan_ref(x, dt, A, B, C, case[5])
+    ref = ssd_ops.PLAIN[var](x, dt, A, B, C, case[5])
     torch.testing.assert_close(y.float(), ref.float(), rtol=SSD_TOL[dtype],
                                atol=SSD_TOL[dtype])
 

@@ -128,3 +128,59 @@ def test_wrappers_refuse_a_device_without_a_kernel():
     with pytest.raises(ValueError, match="no kernel"):
         fa_ops.flash_attention_bhsd(q[:, :, None], k, k)
     assert da_ops.launches == 0 and fa_ops.launches == 0
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", FA_SHAPES)
+def test_flash_ref_with_bf16_p_matches_pallas_kernel(case, dtype):
+    """The plain version of the wgmma kernel (P rounded to bf16 before
+    P V, row sums in f32) against the Pallas kernel, within the bf16
+    tolerance in both dtypes (P's rounding is bf16's)."""
+    B, H, Hkv, Sq, Sk, hd, bq, bk, causal, window = case
+    (jq, jk, jv), (tq, tk, tv) = _inputs(
+        [(B, H, Sq, hd), (B, Hkv, Sk, hd), (B, Hkv, Sk, hd)], dtype, 1)
+    ref = flash_attention_bhsd(jq, jk, jv, causal=causal, window=window,
+                               block_q=bq, block_k=bk, interpret=True)
+    port = attention_ref(tq, tk, tv, causal=causal, window=window,
+                         round_p=True)
+    assert port.dtype == tq.dtype and port.shape == tq.shape
+    _close(port, ref, "bfloat16")
+
+
+def test_flash_ref_with_bf16_p_gives_zero_on_fully_masked_rows():
+    _, (tq, tk, tv) = _inputs(
+        [(1, 2, 48, 64), (1, 2, 16, 64), (1, 2, 16, 64)], "bfloat16", 3)
+    port = attention_ref(tq, tk, tv, causal=False, window=8, round_p=True)
+    assert torch.equal(port[:, :, 23:], torch.zeros_like(port[:, :, 23:]))
+    ref = attention_ref(tq, tk, tv, causal=False, window=8)
+    _close(port[:, :, :23], ref[:, :, :23].float().numpy(), "bfloat16")
+
+
+def test_flash_variant_dispatch():
+    """bf16 at head dim 64 or 128 goes to the wgmma kernel; f32 at every
+    head dim the kernels take, and bf16 at the others, to the FMA kernel;
+    anything else raises."""
+    for hd in (8, 16, 32, 48, 64, 96, 112, 128, 256, 512):
+        if hd not in (16, 32, 64, 96, 112, 128, 256):
+            for dtype in (torch.float32, torch.bfloat16):
+                with pytest.raises(ValueError, match="unsupported"):
+                    fa_ops.variant(dtype, hd)
+            continue
+        assert fa_ops.variant(torch.float32, hd) == "fma"
+        assert fa_ops.variant(torch.bfloat16, hd) == \
+            ("wgmma" if hd in (64, 128) else "fma")
+        with pytest.raises(TypeError):
+            fa_ops.variant(torch.float16, hd)
+
+
+def test_flash_wrapper_takes_each_variants_plain_version_on_cpu():
+    fa_ops.zero_launches()
+    _, (q, k, v) = _inputs([(1, 4, 40, 64), (1, 2, 40, 64), (1, 2, 40, 64)],
+                           "bfloat16", 7)
+    assert torch.equal(fa_ops.flash_attention_bhsd(q, k, v, window=16),
+                       attention_ref(q, k, v, window=16, round_p=True))
+    assert torch.equal(fa_ops.flash_attention_bhsd(q[..., :32], k[..., :32],
+                                                   v[..., :32]),
+                       attention_ref(q[..., :32], k[..., :32], v[..., :32]))
+    assert fa_ops.launches == 0
+    assert fa_ops.launches_by_variant == {"wgmma": 0, "fma": 0}

@@ -14,8 +14,10 @@ from repro.models import decode_step as j_decode_step
 from repro.models import forward as j_forward
 from repro.models import init_cache as j_init_cache
 from repro.models import init_params as j_init_params
+from repro.models import prefill as j_prefill
 from repro_torch import models as tm
 from repro_torch.convert import params_from_numpy, params_to_numpy
+from repro_torch.kernels.flash_attention import ops as fa_ops
 
 DENSE = ["smollm-360m", "gemma-7b", "deepseek-coder-33b", "mistral-large-123b",
          "phi-3-vision-4.2b", "musicgen-large"]
@@ -47,6 +49,30 @@ def test_forward_matches_jax(arch, impl):
     np.testing.assert_allclose(
         tm.prefill(tp, _tbatch(batch), cfg, 40).numpy(),
         np.asarray(ref[:, -1]), rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("head_dim", [None, 64])
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+def test_bf16_prefill_matches_jax(impl, head_dim):
+    """SmolLM's smoke config in bf16: the port's prefill logits against
+    JAX's on the same converted parameters, within the reference's bf16
+    tolerance (tests/test_kernels.py).  At head dim 64 the pallas path's
+    attention takes the wgmma kernel's plain version (P rounded to bf16),
+    at the smoke config's 32 the FMA kernel's."""
+    extra = {} if head_dim is None else {"head_dim": head_dim}
+    cfg = smoke_config("smollm-360m").scaled(remat=False, dtype="bfloat16",
+                                             attn_impl=impl, **extra)
+    assert fa_ops.variant(torch.bfloat16, cfg.resolved_head_dim) == \
+        ("wgmma" if head_dim == 64 else "fma")
+    jp = j_init_params(jax.random.PRNGKey(6), cfg)
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
+    batch = make_batch(cfg, np.random.default_rng(3), batch=2, seq=64)
+    ref = j_prefill(jp, batch, cfg, 64)
+    out = tm.prefill(tp, _tbatch(batch), cfg, 64)
+    assert out.shape == (2, cfg.vocab_size) and torch.isfinite(out).all()
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(ref, np.float32),
+                               rtol=2e-2, atol=2e-2)
 
 
 @pytest.mark.parametrize("impl", ["xla", "pallas"])

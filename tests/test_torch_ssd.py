@@ -4,6 +4,8 @@ interpret mode), the chunked algorithm and the sequential recurrence
 against theirs, and the CPU dispatch of the wrapper.  Shapes and
 tolerances are the reference's (tests/test_kernels.py)."""
 
+import itertools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -13,7 +15,10 @@ from repro.kernels.ssd_scan.kernel import ssd_scan as jax_ssd_scan
 from repro.kernels.ssd_scan.ref import ssd_sequential as jax_ssd_sequential
 from repro.models.mamba2 import ssd_chunked as jax_ssd_chunked
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
-from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref, ssd_sequential
+from repro_torch.kernels.ssd_scan.ref import (ssd_chunk_states,
+                                              ssd_scan_chunked, ssd_scan_ref,
+                                              ssd_sequential,
+                                              ssd_state_passing)
 from repro_torch.models.mamba2 import ssd_chunked
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
@@ -117,13 +122,21 @@ def test_strong_decay_gives_finite_output():
 
 
 def test_wrapper_takes_the_plain_version_for_cpu_tensors():
-    ssd_ops.launches = 0
+    """bf16 dispatches to the tensor-core kernel, whose plain version is
+    the three steps with its bf16 rounding points; f32 to the FMA kernel,
+    whose plain version is the f32 chunked algorithm."""
+    ssd_ops.zero_launches()
     _, (x, dt, A, B, C) = _inputs(2, 64, 4, 16, 16, "bfloat16", seed=5)
     y, none = ssd_ops.ssd(x, dt, A, B, C, chunk=16, head_block=2)
     assert none is None
-    assert torch.equal(y, ssd_scan_ref(x, dt, A, B[:, :, 0], C[:, :, 0], 16))
+    assert torch.equal(y, ssd_scan_chunked(x, dt, A, B[:, :, 0], C[:, :, 0],
+                                           16, bf16_points=True))
     assert torch.equal(y, ssd_ops.ssd(x, dt, A, B, C, chunk=16)[0])
+    _, (x, dt, A, B, C) = _inputs(2, 64, 4, 16, 16, "float32", seed=5)
+    assert torch.equal(ssd_ops.ssd(x, dt, A, B, C, chunk=16)[0],
+                       ssd_scan_ref(x, dt, A, B[:, :, 0], C[:, :, 0], 16))
     assert ssd_ops.launches == 0
+    assert ssd_ops.launches_by_variant == {"tc": 0, "fma": 0}
 
 
 def test_wrapper_raises_on_what_the_reference_refuses():
@@ -137,3 +150,83 @@ def test_wrapper_raises_on_what_the_reference_refuses():
     with pytest.raises(ValueError, match="no kernel"):
         ssd_ops.ssd_scan(*meta, chunk=16)
     assert ssd_ops.launches == 0
+
+
+# the reference's shapes plus A = -16, dt = 0.1 over 128-row chunks, where
+# exp(cum_i - cum_j) above the diagonal overflows to +inf
+STEP_SHAPES = [c + (False,) for c in SSD_SHAPES] + [
+    (1, 256, 2, 16, 16, 128, 2, True)]
+
+
+def _step_inputs(case, dtype, seed):
+    b, s, h, p, n, chunk, hb, strong = case
+    kw = dict(dt_range=(0.1, 0.1), a_range=(16.0, 16.0)) if strong else {}
+    return _inputs(b, s, h, p, n, dtype, seed=seed, **kw)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", STEP_SHAPES)
+def test_ssd_three_steps_match_pallas_kernel(case, dtype):
+    """Chunk states, state passing and chunk scan composed (all f32) give
+    the Pallas kernel's y."""
+    b, s, h, p, n, chunk, hb, _ = case
+    (jx, jdt, jA, jB, jC), (x, dt, A, B, C) = _step_inputs(case, dtype, 7)
+    ref = jax_ssd_scan(jx, jdt, jA, jB[:, :, 0], jC[:, :, 0], chunk=chunk,
+                       head_block=hb, interpret=True)
+    port = ssd_scan_chunked(x, dt, A, B[:, :, 0], C[:, :, 0], chunk)
+    assert port.dtype == x.dtype and port.shape == x.shape
+    assert torch.isfinite(port.float()).all()
+    _close(port, ref, dtype)
+
+
+@pytest.mark.parametrize("case", STEP_SHAPES)
+def test_ssd_three_steps_with_bf16_points_match_sequential(case):
+    """With the tensor-core kernel's three bf16 roundings (w x, the
+    entering state, L) the composition stays within the reference's bf16
+    tolerance of the direct recurrence on the same bf16 inputs."""
+    _, (x, dt, A, B, C) = _step_inputs(case, "bfloat16", 8)
+    y = ssd_scan_chunked(x, dt, A, B[:, :, 0], C[:, :, 0], case[5],
+                         bf16_points=True)
+    assert y.dtype == torch.bfloat16 and torch.isfinite(y.float()).all()
+    y_seq, _ = ssd_sequential(x.float(), dt, A, B.float(), C.float())
+    torch.testing.assert_close(y.float(), y_seq, **TOL["bfloat16"])
+
+
+@pytest.mark.parametrize("case", STEP_SHAPES)
+def test_ssd_entering_states_match_sequential(case):
+    """Steps 1 and 2: the state entering chunk c is the recurrence's state
+    after token c * chunk - 1, and the last one carried once more is the
+    final state."""
+    b, s, h, p, n, chunk, _, _ = case
+    _, (x, dt, A, B, C) = _step_inputs(case, "float32", 9)
+    cum, contrib = ssd_chunk_states(x, dt, A, B[:, :, 0], chunk)
+    assert cum.shape == (b, s, h) and contrib.shape == (b, s // chunk, h, p, n)
+    s_in = ssd_state_passing(contrib, cum, chunk)
+    assert torch.equal(s_in[:, 0], torch.zeros_like(s_in[:, 0]))
+    for c in range(1, s // chunk):
+        _, state = ssd_sequential(x[:, :c * chunk], dt[:, :c * chunk], A,
+                                  B[:, :c * chunk], C[:, :c * chunk])
+        torch.testing.assert_close(s_in[:, c], state, **TOL["float32"])
+    _, final = ssd_sequential(x, dt, A, B, C)
+    decay = torch.exp(cum[:, -1])[..., None, None]
+    torch.testing.assert_close(s_in[:, -1] * decay + contrib[:, -1], final,
+                               **TOL["float32"])
+
+
+def test_ssd_variant_dispatch():
+    """bf16 goes to the tensor-core kernel and f32 to the FMA kernel, on
+    exactly the shapes both are written for; anything else raises."""
+    sizes = (8, 16, 32, 48, 64, 128, 256)
+    for p, n, chunk in itertools.product(sizes, sizes, sizes):
+        ok = p in (16, 32, 64) and n in (16, 32, 64, 128) \
+            and chunk in (16, 32, 64, 128)
+        for dtype, expected in ((torch.bfloat16, "tc"),
+                                (torch.float32, "fma")):
+            if ok:
+                assert ssd_ops.variant(dtype, p, n, chunk) == expected
+            else:
+                with pytest.raises(ValueError, match="unsupported"):
+                    ssd_ops.variant(dtype, p, n, chunk)
+        if ok:
+            with pytest.raises(TypeError):
+                ssd_ops.variant(torch.float16, p, n, chunk)
