@@ -27,13 +27,23 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      slots), f32 decode against forward through the fma kernels;
   8. timings at the main paths' shapes: each variant, its plain version,
      and one PyTorch library call as a yardstick where one computes the
-     same function (the port never calls it).
+     same function (the port never calls it); decode_attention also at
+     the full-context step's shape and at DeepSeek-Coder-33B's heads over
+     a 16384-token cache, and at one split fewer and more than its rule
+     picks.  `ms`, `plain_ms` and `library_ms` are device time per call
+     (the kernels' durations from torch.profiler); `call_ms` is CUDA-event
+     time over back-to-back calls, which the host's launch cost bounds at
+     small shapes.
+Phase 5 ends with a full-context SmolLM-360M decode step: bf16, 8 slots
+of a 2048-token cache filled with seeded random K/V, position 2000; 32
+steps timed, one profiled (device busy, idle share, decode_attention's
+share), the first step's logits against the eager path.
 Phases 4-5, 6 and 7 are the three main paths.  The launch counters are
 zeroed just before each and read just after it; every kernel variant of a
 path must have launched there, and the JSON line's `launches` is a
-kernel's sum over the three (one ssd_scan tc call is three launches).
-The last two lines are a JSON object of per-kernel numbers, with a
-`variants` entry per kernel, and {"ok": true, "device": {...}}.
+kernel's sum over the three (one ssd_scan call of either variant is three
+launches).  The last two lines are a JSON object of per-kernel numbers,
+with a `variants` entry per kernel, and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -71,6 +81,11 @@ DT = {"f32": torch.float32, "bf16": torch.bfloat16}
 TOL = {"f32": 2e-5, "bf16": 2e-2}         # tests/test_kernels.py
 TOL_LONG_F32 = 1e-4                       # f32 at S >= 2000: longer sums
 SSD_TOL = {"f32": 1e-4, "bf16": 3e-2}      # tests/test_kernels.py
+# decode also against the output's scale: over a long cache |o| ~
+# sqrt(e / len) is below TOL["bf16"], and a dropped split of a 16K cache
+# moves o by more than 1e-3 an element, so max |out - ref| / max |ref|
+# <= 1e-2 as well
+DECODE_REL_TOL = 1e-2
 
 # (B, H, Hkv, T, hd, length, window): the reference's DA_SHAPES, then
 # SmolLM-360M serving (8 slots, max_seq 512), length > T included
@@ -83,7 +98,22 @@ DECODE_CASES = [
     (8, 15, 5, 512, 64, 700, 128),
     (2, 32, 32, 256, 112, 1, 0), (2, 32, 32, 256, 112, 256, 0),
     (8, 32, 32, 512, 112, 300, 0),
+    # the split: length 1 of a 16K cache (all splits but one empty);
+    # SmolLM-360M's full 2048-token context (6 splits) with a length one
+    # row past a split boundary in bf16 (385 = 6 tiles of 64 + 1: splits
+    # of 2 tiles, the fourth holding one row, the last two empty), a
+    # window inside one split and length > T; units = B * Hkv = 1056, so
+    # one split; 12 q heads per kv head (two blocks of 8 heads); f32 and
+    # bf16 at hd 256
+    (2, 56, 8, 16384, 128, 1, 0), (8, 15, 5, 2048, 64, 385, 0),
+    (8, 15, 5, 2048, 64, 1500, 20), (8, 15, 5, 2048, 64, 2500, 0),
+    (33, 32, 32, 128, 112, 100, 0), (2, 96, 8, 1200, 128, 1150, 0),
+    (2, 8, 2, 1100, 256, 1090, 0),
+    (8, 56, 8, 16384, 128, 16384, 0),          # DeepSeek-Coder-33B, 16K
 ]
+DEEPSEEK_16K = (8, 56, 8, 16384, 128, 16384, 0)
+# the full-context decode step's attention: 8 slots x 2048, length 2001
+FULL_CONTEXT = (8, 15, 5, 2048, 64, 2001, 0)
 # (B, H, Hkv, Sq, Sk, hd, causal, window): the reference's FA_SHAPES, a
 # row set with no visible key, then SmolLM-360M prompts
 FLASH_CASES = [
@@ -111,8 +141,16 @@ SSD_CASES = [
     (1, 96, 2, 16, 64, 32, False), (1, 64, 8, 64, 16, 64, False),
     (2, 2048, 80, 64, 128, 128, False), (2, 512, 112, 64, 64, 128, False),
     (2, 512, 80, 64, 128, 128, True),
+    # the main paths' f32 forwards at S=256: Mamba2-2.7B, Zamba2-7B
+    (2, 256, 80, 64, 128, 128, False), (2, 256, 112, 64, 64, 128, False),
 ]
 MAMBA_SHAPE = (2, 2048, 80, 64, 128, 128, False)
+MAMBA_256 = (2, 256, 80, 64, 128, 128, False)
+ZAMBA_256 = (2, 256, 112, 64, 64, 128, False)
+# the full-context decode step against the eager path, which rounds its
+# scores and probabilities to bf16 where the kernel keeps them f32; the
+# same reasoning and limit as PREFILL_REL_LIMIT
+DECODE_REL_LIMIT = 0.1
 
 
 def log(phase: str, msg: str) -> None:
@@ -127,6 +165,50 @@ def leaves(tree):
 
 def randn(gen, shape, dtype, device):
     return torch.randn(shape, generator=gen, device=device).to(dtype)
+
+
+def dev_us(event) -> float:
+    return getattr(event, "self_device_time_total", None) \
+        or getattr(event, "self_cuda_time_total", 0.0)
+
+
+def device_kernels(fn, iters: int, warmup: int = 3) -> dict:
+    """Device time per call by kernel name: the durations of the kernels
+    the calls launched, from torch.profiler, over `iters` calls.  Unlike
+    `cuda_ms` it leaves out the host's time between launches, which at
+    small shapes is longer than the kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    # now and then the profiler hands back no kernel for a run (a 0 ms
+    # reading): measure again rather than report it
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA and dev_us(e) > 0:
+                name = kernel_name(e.key)
+                out[name] = out.get(name, 0.0) + dev_us(e) / 1e3 / iters
+        if out:
+            return out
+    raise RuntimeError("torch.profiler recorded no kernel in three runs")
+
+
+def device_ms(fn, iters: int) -> float:
+    return sum(device_kernels(fn, iters).values())
+
+
+def timed(fn, iters: int) -> tuple[float, float, dict]:
+    """(device ms per call, ms per call by CUDA events over back-to-back
+    calls, which includes the host's launch time where that is longer,
+    device ms per call by kernel)."""
+    kernels = device_kernels(fn, iters)
+    return sum(kernels.values()), cuda_ms(fn, iters), kernels
 
 
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -195,7 +277,29 @@ def compare(name, out, ref, tol) -> float:
     return float((out.float() - ref.float()).abs().max())
 
 
+def decode_workspace_reuse(dtype, dname, device) -> None:
+    """Calls of one shape share a cached workspace: two calls in a row
+    with different lengths are both right, and each leaves the ticket
+    counters at zero."""
+    case = (8, 15, 5, 2048, 64, 2001, 0)
+    q, k, v, _ = decode_inputs(case, dtype, device, seed=4)
+    for length in (2001, 37, 1500):
+        len_t = torch.tensor(length, dtype=torch.int32, device=device)
+        out = da_ops.decode_attention(q, k, v, len_t)
+        compare(f"decode reuse len={length} {dname}", out,
+                decode_attention_ref(q, k, v, len_t), TOL[dname])
+        for ws_key, (_, _, counters) in da_ops._WORKSPACES.items():
+            if int(counters.abs().sum()) != 0:
+                raise AssertionError(f"decode: ticket counters of {ws_key} "
+                                     "not reset")
+    log("kernel", f"decode_attention {dname}: three calls (len 2001, 37, "
+        "1500) "
+        f"on one cached workspace of {len(da_ops._WORKSPACES)}: right, "
+        "counters back at 0")
+
+
 def check_kernels(device) -> None:
+    sms = _build.sm_count(device)
     for dname, dtype in DT.items():
         for case in DECODE_CASES:
             q, k, v, length = decode_inputs(case, dtype, device)
@@ -204,9 +308,20 @@ def check_kernels(device) -> None:
             ref = decode_attention_ref(q, k, v, length, window=window)
             torch.cuda.synchronize()
             err = compare(f"decode {case} {dname}", out, ref, TOL[dname])
+            rel = err / max(float(ref.float().abs().max()), 1e-30)
+            if rel > DECODE_REL_TOL:
+                raise AssertionError(f"decode {case} {dname}: max |diff| / "
+                                     f"max |ref| {rel}")
+            B, H, Hkv, T = case[:4]
+            rg = da_ops.heads_per_block(H // Hkv, dtype)
+            units = B * Hkv * -(-(H // Hkv) // rg)
+            ring = da_ops.ring_bytes(case[4], dtype)
             log("kernel", f"decode_attention {dname} (B,H,Hkv,T,hd,len,win)="
-                f"{case}: max_abs_err {err:.3g} "
-                f"(rtol = atol = {TOL[dname]})")
+                f"{case}: max_abs_err {err:.3g} (rtol = atol = "
+                f"{TOL[dname]}), relative to max |ref| {rel:.3g} (limit "
+                f"{DECODE_REL_TOL}); {units} units x "
+                f"{da_ops.num_splits(units, T, ring, sms)} splits)")
+        decode_workspace_reuse(dtype, dname, device)
         for case in FLASH_CASES:
             q, k, v = flash_inputs(case, dtype, device)
             causal, window = case[6], case[7]
@@ -327,7 +442,7 @@ def engines_agree(cfg32, params32, device):
 
 
 def zero_launches() -> None:
-    da_ops.launches = 0
+    da_ops.zero_launches()
     fa_ops.zero_launches()
     ssd_ops.zero_launches()
 
@@ -335,8 +450,9 @@ def zero_launches() -> None:
 def read_launches(path: str, needed) -> dict:
     """Launches per kernel variant ("flash_attention.wgmma", ...) since
     the last zero_launches; every variant in `needed` must have run."""
-    got = {"decode_attention.fma": da_ops.launches}
-    for name, mod in (("flash_attention", fa_ops), ("ssd_scan", ssd_ops)):
+    got = {}
+    for name, mod in (("decode_attention", da_ops),
+                      ("flash_attention", fa_ops), ("ssd_scan", ssd_ops)):
         for var, n in mod.launches_by_variant.items():
             got[f"{name}.{var}"] = n
         if sum(mod.launches_by_variant.values()) != mod.launches:
@@ -388,6 +504,8 @@ def smollm_path(device):
     dec_len = min(int(eng.cache["pos"]), 512)
     del params32, eng
     free()
+    fc = full_context_decode(cfg16, params16, device)
+    free()
     wall, rel, agree = timed_prefill(cfg16, params16, device, seed=3)
     log("prefill", f"smollm-360m full width bf16 B=2 S=2048: "
         f"{1e3 * wall:.3f} ms, {2 * 2048 / wall:.1f} prompt tokens/s; "
@@ -396,7 +514,7 @@ def smollm_path(device):
         f"agreement {agree}")
     if rel > PREFILL_REL_LIMIT:
         raise AssertionError(f"prefill kernel vs eager: relative {rel}")
-    return dec_len
+    return dec_len, fc
 
 
 def timed_prefill(cfg16, params16, device, seed, S=2048):
@@ -421,32 +539,102 @@ def timed_prefill(cfg16, params16, device, seed, S=2048):
     return wall, rel, agree
 
 
-def where_the_time_goes(cfg, params, tokens, S, top=8):
-    """One more prefill under torch.profiler: the device's busy time (sum
-    of the kernels' times) against the call's wall time, and the kernels
-    that take the most.  The profiler slows the host, so the idle share
-    printed is an upper bound for an unprofiled call."""
+def kernel_name(key: str) -> str:
+    """`ssd_chunk_scan_kernel` of a profiler key such as `void (anonymous
+    namespace)::ssd_chunk_scan_kernel<...>(float const*, ...)`."""
+    key = key.replace("(anonymous namespace)::", "").replace("void ", "")
+    return key.split("(")[0].split("<")[0].split("::")[-1][:48]
+
+
+def profile_call(fn):
+    """One call of `fn` under torch.profiler.  Returns (wall ms, device
+    busy ms: the sum of the kernels' times, [(kernel name, ms, count)]
+    largest first).  The profiler slows the host, so 1 - busy / wall is
+    an upper bound for the idle share of an unprofiled call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        prefill(params, {"tokens": tokens}, cfg, S)
+        fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) \
-            or getattr(e, "self_cuda_time_total", 0.0)
     # kernels only: an operator's device time repeats its kernels'
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
-    busy_ms = sum(dev_us(e) for e in events) / 1e3
-    parts = ", ".join(f"{e.key[:48]} {dev_us(e) / 1e3:.3f} ms x{e.count}"
-                      for e in sorted(events, key=dev_us, reverse=True)[:top])
+    kernels = sorted(((e.key, dev_us(e) / 1e3, e.count) for e in events),
+                     key=lambda kv: kv[1], reverse=True)
+    return wall_ms, sum(ms for _, ms, _ in kernels), kernels
+
+
+def where_the_time_goes(cfg, params, tokens, S, top=8):
+    """One more prefill under torch.profiler: the device's busy time
+    against the call's wall time, and the kernels that take the most."""
+    wall_ms, busy_ms, kernels = profile_call(
+        lambda: prefill(params, {"tokens": tokens}, cfg, S))
+    parts = ", ".join(f"{k[:48]} {ms:.3f} ms x{n}"
+                      for k, ms, n in kernels[:top])
     log("prefill", f"{cfg.name} where the time goes (profiled call, "
         f"{wall_ms:.3f} ms wall): device busy {busy_ms:.3f} ms, idle share "
         f"{max(0.0, 1 - busy_ms / wall_ms):.3f}; top kernels: {parts}")
+
+
+def full_context_decode(cfg16, params16, device, slots=8, T=2048, pos=2000,
+                        steps=32, seed=5):
+    """SmolLM-360M's decode step at its published 2048-token context: 8
+    slots of seeded random bf16 K/V, the shared position at `pos`.  The
+    first step's logits against the eager path (on a clone of the cache),
+    then `steps` timed steps (host clock, each ending in a synchronise)
+    and one profiled step.  Returns the step's numbers."""
+    cache = init_cache(cfg16, slots, T, device=device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    for name in ("k", "v"):
+        cache[name].copy_(torch.randn(cache[name].shape, generator=gen,
+                                      device=device).to(cache[name].dtype))
+    cache["pos"].fill_(pos)
+    rng = np.random.default_rng(seed)
+    toks = [torch.from_numpy(rng.integers(0, cfg16.vocab_size, (slots, 1)))
+            .to(device) for _ in range(steps + 2)]
+    plain_cache = {k: v.clone() for k, v in cache.items()}
+    plain, _ = decode_step(params16, plain_cache, toks[0],
+                           cfg16.scaled(attn_impl="xla"))
+    del plain_cache
+    logits, cache = decode_step(params16, cache, toks[0], cfg16)
+    if logits.shape != (slots, cfg16.vocab_size) \
+            or not torch.isfinite(logits).all():
+        raise AssertionError(f"full-context decode logits "
+                             f"{tuple(logits.shape)} not finite")
+    rel = float((logits - plain).abs().max() / plain.abs().max())
+    agree = float((logits.argmax(-1) == plain.argmax(-1)).float().mean())
+    if rel > DECODE_REL_LIMIT:
+        raise AssertionError(f"full-context decode vs eager: relative {rel}")
+    step_s = []
+    for t in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, cache = decode_step(params16, cache, toks[1 + t], cfg16)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    wall_ms, busy_ms, kernels = profile_call(
+        lambda: decode_step(params16, cache, toks[-1], cfg16))
+    da_ms = sum(ms for k, ms, _ in kernels if "decode_split_kernel" in k)
+    out = dict(rel=rel, top1=agree, p50_ms=1e3 * float(np.median(step_s)),
+               p99_ms=1e3 * float(np.percentile(step_s, 99)),
+               profiled_wall_ms=wall_ms, busy_ms=busy_ms,
+               idle_share=max(0.0, 1 - busy_ms / wall_ms),
+               decode_attention_ms=da_ms,
+               decode_attention_share=da_ms / busy_ms if busy_ms else 0.0)
+    parts = ", ".join(f"{k[:48]} {ms:.3f} ms x{n}" for k, ms, n in kernels[:6])
+    log("decode-2048", f"smollm-360m full width bf16, {slots} slots x {T} "
+        f"cache, pos {pos}: first step against the eager path max |diff| / "
+        f"max |logit| {rel:.3g} (limit {DECODE_REL_LIMIT}), top-1 agreement "
+        f"{agree}; {steps} steps p50 {out['p50_ms']:.3f} ms, p99 "
+        f"{out['p99_ms']:.3f} ms; one profiled step {wall_ms:.3f} ms wall, "
+        f"device busy {busy_ms:.3f} ms, idle share {out['idle_share']:.3f}, "
+        f"decode_attention {da_ms:.3f} ms ({out['decode_attention_share']:.3f}"
+        f" of busy); top kernels: {parts}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -521,16 +709,19 @@ def time_decode(case, dtype, device):
     out = da_ops.decode_attention(q, k, v, len_t)
     err = compare("decode timing shape", out,
                   decode_attention_ref(q, k, v, len_t), 2e-2)
-    ms = cuda_ms(lambda: da_ops.decode_attention(q, k, v, len_t), 200)
-    plain = cuda_ms(lambda: decode_attention_ref(q, k, v, len_t), 50)
+    ms, call_ms, _ = timed(lambda: da_ops.decode_attention(q, k, v, len_t),
+                           200)
+    plain = device_ms(lambda: decode_attention_ref(q, k, v, len_t),
+                      50 if T <= 4096 else 5)
     L = min(length, T)
-    library = cuda_ms(lambda: F.scaled_dot_product_attention(
+    library, library_call, _ = timed(lambda: F.scaled_dot_product_attention(
         q[:, :, None], k[:, :, :L], v[:, :, :L], enable_gqa=True), 200)
     elt = q.element_size()
     nbytes = elt * (2 * B * H * hd + 2 * B * Hkv * L * hd) + 4
     b_ms, b_by = bound(nbytes, 4 * B * H * L * hd, dtype)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
-                bound_by=b_by, library_ms=library)
+                bound_by=b_by, library_ms=library, call_ms=call_ms,
+                library_call_ms=library_call)
 
 
 def time_ssd(case, dtype, device, var, iters=20):
@@ -542,18 +733,22 @@ def time_ssd(case, dtype, device, var, iters=20):
     y = ssd_ops._launch(var, x, dt, A, B, C, q)
     err = compare("ssd timing shape", y, ssd_ops.PLAIN[var](x, dt, A, B, C, q),
                   SSD_TOL["f32" if dtype == torch.float32 else "bf16"])
-    ms = cuda_ms(lambda: ssd_ops._launch(var, x, dt, A, B, C, q), iters)
-    plain = cuda_ms(lambda: ssd_ops.PLAIN[var](x, dt, A, B, C, q), 5)
+    ms, call_ms, parts = timed(
+        lambda: ssd_ops._launch(var, x, dt, A, B, C, q), iters)
+    plain = device_ms(lambda: ssd_ops.PLAIN[var](x, dt, A, B, C, q), 5)
     elt = x.element_size()
     nbytes = elt * (2 * b * s * h * p + 2 * b * s * n) + 4 * (b * s * h + h)
     nc = s // q
-    # per (b, head, chunk) C.(state), (weighted x)^T B and M x; per
-    # (b, chunk) one C B^T shared by the heads
-    flops = b * h * nc * 3 * 2 * q * q * p + b * nc * 2 * q * q * n
+    # per (b, head, chunk) C . S^T and (weighted x)^T B (2 q p n each) and
+    # the lower triangle of L x; per (b, chunk) the lower triangle of one
+    # C B^T shared by the heads
+    flops = b * h * nc * (4 * q * p * n + q * (q + 1) * p) \
+        + b * nc * q * (q + 1) * n
     b_ms, b_by = bound(nbytes, flops, dtype)
     # no single PyTorch call computes the SSD scan
     return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None)
+                bound_by=b_by, library_ms=None, call_ms=call_ms,
+                kernels_ms={k: round(v, 5) for k, v in parts.items()})
 
 
 def time_flash(case, dtype, device, var, iters=50):
@@ -562,27 +757,75 @@ def time_flash(case, dtype, device, var, iters=50):
     out = fa_ops._launch(var, q, k, v, True, 0)
     err = compare("flash timing shape", out, fa_ops.PLAIN[var](q, k, v),
                   TOL_LONG_F32 if dtype == torch.float32 else TOL["bf16"])
-    ms = cuda_ms(lambda: fa_ops._launch(var, q, k, v, True, 0), iters)
-    plain = cuda_ms(lambda: fa_ops.PLAIN[var](q, k, v), max(5, iters // 5))
-    library = cuda_ms(lambda: F.scaled_dot_product_attention(
+    ms, call_ms, _ = timed(lambda: fa_ops._launch(var, q, k, v, True, 0),
+                           iters)
+    plain = device_ms(lambda: fa_ops.PLAIN[var](q, k, v), max(5, iters // 5))
+    library, library_call, _ = timed(lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=True, enable_gqa=True), iters)
     elt = q.element_size()
     nbytes = elt * (2 * B * H * S * hd + 2 * B * Hkv * S * hd)
     flops = 4 * B * H * hd * S * (S + 1) // 2        # visible (q, k) pairs
     b_ms, b_by = bound(nbytes, flops, dtype)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
-                bound_by=b_by, library_ms=library)
+                bound_by=b_by, library_ms=library, call_ms=call_ms,
+                library_call_ms=library_call)
+
+
+def decode_split_neighbours(case, device) -> None:
+    """decode_attention's device time at the split count ops.num_splits
+    picks for `case` and at one split fewer and more: the rule against its
+    neighbours."""
+    B, H, Hkv, T, hd = case[:5]
+    q, k, v, len_t = decode_inputs(case, torch.bfloat16, device, seed=1)
+    rep = H // Hkv
+    units = B * Hkv * -(-rep // da_ops.heads_per_block(rep, q.dtype))
+    rule = da_ops.num_splits(units, T, da_ops.ring_bytes(hd, q.dtype),
+                             _build.sm_count(device))
+    times = {sp: device_ms(lambda: da_ops._launch(q, k, v, len_t, 0,
+                                                  splits=sp), 100)
+             for sp in (rule - 1, rule, rule + 1) if sp >= 1}
+    log("timing", f"decode_attention bf16 (B,H,Hkv,T,hd,len)={case[:6]} "
+        f"device ms by splits: {times}; the rule picks {rule}")
+
+
+def decode_and_ssd_timings(device, dec_len: int) -> dict:
+    """decode_attention at the serving shape, at the full-context step's
+    shape and at DeepSeek-Coder-33B's heads over 16K tokens, each also at
+    its neighbouring split counts; the f32 ssd_scan at its main-path shapes
+    (S = 256, Mamba2-2.7B and Zamba2-7B) and at Mamba2-2.7B's S = 2048."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    out = {"decode": time_decode((8, 15, 5, 512, 64, dec_len, 0), bf16,
+                                 device)}
+    log("timing", f"decode_attention bf16 B=8 H=15 Hkv=5 T=512 hd=64 "
+        f"len={dec_len}: {out['decode']}")
+    out["decode_2048"] = time_decode(FULL_CONTEXT, bf16, device)
+    log("timing", f"decode_attention bf16 B=8 H=15 Hkv=5 T=2048 hd=64 "
+        f"len=2001 (the full-context step's): {out['decode_2048']}")
+    out["decode_16k"] = time_decode(DEEPSEEK_16K, bf16, device)
+    log("timing", f"decode_attention bf16 B=8 H=56 Hkv=8 T=16384 hd=128 "
+        f"len=16384 (DeepSeek-Coder-33B's heads): {out['decode_16k']}")
+    for case in ((8, 15, 5, 512, 64, dec_len, 0), FULL_CONTEXT,
+                 DEEPSEEK_16K):
+        decode_split_neighbours(case, device)
+    free()
+    for key, case in (("ssd_fma_256", MAMBA_256), ("ssd_fma_256_zamba",
+                                                   ZAMBA_256),
+                      ("ssd_fma_2048", MAMBA_SHAPE)):
+        out[key] = time_ssd(case, f32, device, "fma")
+        log("timing", f"ssd_scan fma f32 (b,s,h,p,n,chunk)={case[:6]}: "
+            f"{out[key]}")
+    return out
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     device = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_grad_enabled(False)
-
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -614,18 +857,18 @@ def main() -> int:
     paths = {}
     for path, run, needed in (
             ("smollm", smollm_path,
-             ("decode_attention.fma", "flash_attention.fma",
+             ("decode_attention.split", "flash_attention.fma",
               "flash_attention.wgmma")),
             ("mamba2", mamba2_path, ("ssd_scan.fma", "ssd_scan.tc")),
             ("hybrid", hybrid_path,
-             ("decode_attention.fma", "flash_attention.fma",
+             ("decode_attention.split", "flash_attention.fma",
               "ssd_scan.fma"))):
         t0 = time.perf_counter()
         zero_launches()
         out = run(device)
         paths[path] = read_launches(path, needed)
         if path == "smollm":
-            dec_len = out
+            dec_len, full_ctx = out
         free()
         log(path, f"path took {time.perf_counter() - t0:.1f} s")
     launches = {k: sum(p[k] for p in paths.values())
@@ -634,9 +877,7 @@ def main() -> int:
 
     # -- timings --------------------------------------------------------------
     bf16, f32 = torch.bfloat16, torch.float32
-    dec = time_decode((8, 15, 5, 512, 64, dec_len, 0), bf16, device)
-    log("timing", f"decode_attention bf16 B=8 H=15 Hkv=5 T=512 hd=64 "
-        f"len={dec_len}: {dec}")
+    tim = decode_and_ssd_timings(device, dec_len)
     for length in (1, 200, 512):
         log("timing", f"decode_attention bf16 len={length}: " + str(
             time_decode((8, 15, 5, 512, 64, length, 0), bf16, device)))
@@ -658,18 +899,11 @@ def main() -> int:
         "causal (DeepSeek-Coder-33B's heads): " + str(time_flash(
             (1, 56, 8, 2048, 2048, 128, True, 0), bf16, device, "wgmma",
             iters=20)))
-    # ssd_scan: tc at Mamba2's bf16 prefill shape (three launches); fma in
-    # f32 at the same shape and, for the time before the redesign, in bf16
+    # ssd_scan: tc at Mamba2's bf16 prefill shape (three launches)
     ssd = time_ssd(MAMBA_SHAPE, bf16, device, "tc")
     log("timing", f"ssd_scan tc bf16 b=2 s=2048 h=80 p=64 n=128 chunk=128 "
         f"(three launches): {ssd}; library: none (no single PyTorch call "
         "computes the scan)")
-    ssd_fma = time_ssd(MAMBA_SHAPE, f32, device, "fma")
-    log("timing", f"ssd_scan fma f32 b=2 s=2048 h=80 p=64 n=128 chunk=128: "
-        f"{ssd_fma}")
-    log("timing", "ssd_scan fma bf16 b=2 s=2048 h=80 p=64 n=128 chunk=128 "
-        "(the time before the redesign): "
-        + str(time_ssd(MAMBA_SHAPE, bf16, device, "fma")))
 
     def variant(name, var, source, shape, timing):
         return dict(source=f"src/repro_torch/csrc/{source}",
@@ -686,16 +920,22 @@ def main() -> int:
         "tc": variant("ssd_scan", "tc", "ssd_scan_tc.cu",
                       "bf16 b=2 s=2048 h=80 p=64 n=128 chunk=128", ssd),
         "fma": variant("ssd_scan", "fma", "ssd_scan.cu",
-                       "f32 b=2 s=2048 h=80 p=64 n=128 chunk=128", ssd_fma)}
-    da_vars = {"fma": variant("decode_attention", "fma",
-                              "decode_attention.cu",
-                              f"bf16 B=8 H=15 Hkv=5 T=512 hd=64 "
-                              f"len={dec_len}", dec)}
+                       "f32 b=2 s=256 h=80 p=64 n=128 chunk=128",
+                       tim["ssd_fma_256"])}
+    ssd_vars["fma"]["at_s2048"] = tim["ssd_fma_2048"]
+    ssd_vars["fma"]["zamba2_s256"] = tim["ssd_fma_256_zamba"]
+    da_vars = {"split": variant("decode_attention", "split",
+                                "decode_attention.cu",
+                                f"bf16 B=8 H=15 Hkv=5 T=512 hd=64 "
+                                f"len={dec_len}", tim["decode"])}
+    da_vars["split"]["full_context_shape"] = tim["decode_2048"]
+    da_vars["split"]["deepseek_16k"] = tim["decode_16k"]
+    da_vars["split"]["full_context_step"] = full_ctx
     kernels = [
         dict(name="decode_attention", route="cuda",
              source="src/repro_torch/csrc/decode_attention.cu",
              replaces="src/repro/kernels/decode_attention/kernel.py:67",
-             launches=launches["decode_attention.fma"], **dec,
+             launches=launches["decode_attention.split"], **tim["decode"],
              variants=da_vars),
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/csrc/flash_attention_wgmma.cu",
@@ -708,6 +948,8 @@ def main() -> int:
              launches=sum(v["launches"] for v in ssd_vars.values()), **ssd,
              variants=ssd_vars),
     ]
+    log("done", f"chip_smoke took {time.perf_counter() - t_start:.1f} s "
+        "after start-up")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,6 +11,7 @@ nvcc's stderr.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import shutil
 import subprocess
@@ -90,6 +91,12 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_lib_path(name)))
         _LIBS[name] = lib
     return lib
+
+
+@functools.cache
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (132 on an H100 SXM)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def check(lib: ctypes.CDLL, status: int, what: str) -> None:

@@ -3,14 +3,15 @@
 `variant` picks a kernel from the dtype and shape, deterministically:
 - "tc": bf16, `csrc/ssd_scan_tc.cu` (three launches: chunk states, state
   passing, chunk scan; chunk-parallel, products on the tensor cores);
-- "fma": f32, `csrc/ssd_scan.cu` (one launch; one block per (b, head)
-  walking the chunks, f32 FMAs);
+- "fma": f32, `csrc/ssd_scan.cu` (the same three launches, all f32 on
+  register-tiled FMAs, no TF32);
 for head dims in `HEAD_DIMS`, states in `STATES` and chunks in `CHUNKS`,
 and raises on anything else.  CPU tensors take the variant's plain
 version (`PLAIN`, from `ref.py`).  CUDA tensors launch the variant's
 hand-written kernels, or raise; nothing falls back.
 `launches_by_variant` counts each variant's kernel launches, `launches`
-their sum.
+their sum.  The fma kernel takes `heads_per_block(...)` heads per block
+of its chunk-parallel steps; the tc kernel fixes its own (10).
 """
 
 from __future__ import annotations
@@ -21,22 +22,22 @@ import functools
 import torch
 
 from .. import _build
-from .ref import ssd_scan_chunked, ssd_scan_ref
+from .ref import ssd_scan_chunked
 
 # what both kernels are written for
 HEAD_DIMS = (16, 32, 64)
 STATES = (16, 32, 64, 128)
 CHUNKS = (16, 32, 64, 128)
 SOURCES = {"tc": "ssd_scan_tc", "fma": "ssd_scan"}
-LAUNCHES_PER_CALL = {"tc": 3, "fma": 1}
+LAUNCHES_PER_CALL = {"tc": 3, "fma": 3}
 PLAIN = {"tc": functools.partial(ssd_scan_chunked, bf16_points=True),
-         "fma": ssd_scan_ref}
+         "fma": functools.partial(ssd_scan_chunked, bf16_points=False)}
 
 launches = 0
 launches_by_variant = {name: 0 for name in SOURCES}
 
 _ARGTYPES = {
-    "fma": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+    "fma": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
     "tc": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
 }
 
@@ -52,6 +53,18 @@ def variant(dtype: torch.dtype, p: int, n: int, chunk: int) -> str:
     if dtype == torch.float32:
         return "fma"
     raise TypeError(f"ssd_scan: no kernel for dtype {dtype}")
+
+
+def heads_per_block(b: int, nc: int, h: int, p: int, n: int, q: int,
+                    sm_count: int = 132) -> int:
+    """Heads per block of the f32 kernel's chunk-parallel steps (grid
+    b * nc x ceil(h / hb), one block per SM): the hb <= 10 that minimises
+    waves x (hb heads' products + the block's one C B^T), so that short
+    sequences still fill the SMs."""
+    def cost(hb):
+        waves = -(-b * nc * -(-h // hb) // sm_count)
+        return waves * (hb * (2 * q * p * n + q * q * p) + 2 * q * q * n)
+    return min(range(1, 11), key=lambda hb: (cost(hb), -hb))
 
 
 def zero_launches() -> None:
@@ -86,6 +99,14 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return _launch(var, x, dt, A, B, C, chunk)
 
 
+@functools.cache
+def _kernel(var):
+    lib = _build.load(SOURCES[var])
+    fn = getattr(lib, f"{SOURCES[var]}_launch")
+    fn.argtypes, fn.restype = _ARGTYPES[var], ctypes.c_int
+    return lib, fn
+
+
 def _launch(var, x, dt, A, B, C, chunk):
     global launches
     if x.device.type != "cuda":
@@ -97,7 +118,8 @@ def _launch(var, x, dt, A, B, C, chunk):
         raise ValueError(f"ssd_scan: bad shapes x{tuple(x.shape)} "
                          f"dt{tuple(dt.shape)} A{tuple(A.shape)} "
                          f"B{tuple(B.shape)} C{tuple(C.shape)}")
-    if b * h > 2 ** 31 - 1 or (var == "tc" and (h + 9) // 10 > 65535):
+    if b * h > 2 ** 31 - 1 or h > 65535 \
+            or (var == "tc" and (h + 9) // 10 > 65535):
         raise ValueError(f"ssd_scan: unsupported batch {b} x heads {h}")
     if B.dtype != x.dtype or C.dtype != x.dtype \
             or dt.dtype != torch.float32 or A.dtype != torch.float32:
@@ -108,24 +130,27 @@ def _launch(var, x, dt, A, B, C, chunk):
             raise ValueError("ssd_scan: tensors must be contiguous and on "
                              "one device")
     y = torch.empty_like(x)
-    lib = _build.load(SOURCES[var])
-    fn = getattr(lib, f"{SOURCES[var]}_launch")
-    fn.argtypes, fn.restype = _ARGTYPES[var], ctypes.c_int
+    lib, fn = _kernel(var)
+    # workspace: cum, each chunk's state contribution (then, for fma, the
+    # state entering it, in place; tc keeps those in bf16)
+    nc = s // chunk
+    f32 = dict(dtype=torch.float32, device=x.device)
     if var == "tc":
-        # workspace: cum, each chunk's state contribution, entering states
-        nc = s // chunk
-        work = [torch.empty((b, s, h), dtype=torch.float32, device=x.device),
-                torch.empty((b, nc, h, p, n), dtype=torch.float32,
-                            device=x.device),
+        work = [torch.empty((b, s, h), **f32),
+                torch.empty((b, nc, h, p, n), **f32),
                 torch.empty((b, nc, h, p, n), dtype=torch.bfloat16,
                             device=x.device)]
-        args = [t.data_ptr() for t in work]
+        tail = []
     else:
-        args = [_build.DTYPE_CODE[x.dtype]]
+        work = [torch.empty((b, s, h), **f32),
+                torch.empty((b, nc, h, n, p), **f32)]
+        tail = [heads_per_block(b, nc, h, p, n, chunk,
+                                _build.sm_count(x.device))]
     with torch.cuda.device(x.device):
         status = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-                    C.data_ptr(), y.data_ptr(), *args, b, s, h, p, n, chunk,
-                    torch.cuda.current_stream(x.device).cuda_stream)
+                    C.data_ptr(), y.data_ptr(),
+                    *(t.data_ptr() for t in work), b, s, h, p, n, chunk,
+                    *tail, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, status, f"ssd_scan ({var})")
     launches_by_variant[var] += LAUNCHES_PER_CALL[var]
     launches += LAUNCHES_PER_CALL[var]

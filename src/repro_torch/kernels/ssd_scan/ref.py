@@ -2,12 +2,12 @@
 `repro/kernels/ssd_scan/ref.py`.
 
 `ssd_sequential` is the ground truth (the direct recurrence, one step per
-token).  `ssd_scan_ref` computes what `csrc/ssd_scan.cu` computes: inputs
+token).  `ssd_scan_ref` is the kernel's function the model's way: inputs
 upcast to f32, the chunked algorithm (`models/mamba2.py::ssd_chunked`) in
 f32, y cast back to x's dtype.  `ssd_chunk_states`, `ssd_state_passing`
-and `ssd_chunk_scan` are the three steps of `csrc/ssd_scan_tc.cu`, and
-`ssd_scan_chunked` composes them; with `bf16_points` it rounds operands
-to bf16 where that kernel does.
+and `ssd_chunk_scan` are the three steps of `csrc/ssd_scan.cu` (f32) and
+`csrc/ssd_scan_tc.cu` (bf16), and `ssd_scan_chunked` composes them; with
+`bf16_points` it rounds operands to bf16 where the tc kernel does.
 """
 
 from __future__ import annotations

@@ -38,6 +38,14 @@ DA_CASES = [
     (1, 4, 4, 90, 112, 90, 0), (2, 96, 8, 200, 128, 150, 0),
     (1, 4, 2, 80, 256, 70, 30), (8, 15, 5, 512, 64, 700, 0),
     (8, 15, 5, 512, 64, 0, 0),
+    # the split's edges: length 1 of a long cache, one row past a split
+    # boundary (385: 6 splits of 2 bf16 tiles, the fourth holding one row), a
+    # window inside one split, length > T with a window wider
+    # than the cache, one split (B * Hkv = 1056), f32/bf16 at hd 256
+    (2, 8, 1, 4096, 64, 1, 0), (8, 15, 5, 2048, 64, 705, 0),
+    (8, 15, 5, 2048, 64, 385, 0),
+    (8, 15, 5, 2048, 64, 1500, 20), (2, 4, 2, 1100, 32, 1500, 600),
+    (33, 32, 32, 64, 16, 64, 0), (2, 8, 2, 1100, 256, 1090, 0),
 ]
 # (b, s, h, p, n, chunk, strong decay): tests/test_kernels.py SSD_SHAPES,
 # Mamba2-2.7B's and Zamba2-7B's shapes, and A = -16, dt = 0.1, where
@@ -47,6 +55,8 @@ SSD_CASES = [
     (1, 96, 2, 16, 64, 32, False), (1, 64, 8, 64, 16, 64, False),
     (2, 2048, 80, 64, 128, 128, False), (2, 512, 112, 64, 64, 128, False),
     (1, 512, 8, 64, 128, 128, True),
+    # the main paths' f32 forwards at S=256: Mamba2-2.7B, Zamba2-7B
+    (2, 256, 80, 64, 128, 128, False), (2, 256, 112, 64, 64, 128, False),
 ]
 SSD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 
@@ -168,6 +178,70 @@ def test_decode_kernel_matches_plain(cuda, case, dtype):
                                atol=TOL[dtype])
 
 
+def test_decode_kernel_at_deepseek_heads_over_16k_tokens(cuda):
+    """DeepSeek-Coder-33B's heads (56 q, 8 kv, hd 128) over its published
+    16K context, bf16, split by `ops.num_splits` over the SMs.  Over 16K
+    rows |o| ~ sqrt(e / len) ~ 0.013, so the limit is scaled to it: a
+    dropped split (an eighth of the rows at 16 units) moves o by ~0.003
+    an element and ~0.01 at the maximum, far above atol 2e-3."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q = _randn(gen, (2, 56, 128), torch.bfloat16, cuda)
+    k = _randn(gen, (2, 8, 16384, 128), torch.bfloat16, cuda)
+    v = _randn(gen, (2, 8, 16384, 128), torch.bfloat16, cuda)
+    for length in (16384, 9000, 1):
+        len_t = torch.tensor(length, dtype=torch.int32, device=cuda)
+        out = da_ops.decode_attention(q, k, v, len_t)
+        ref = decode_attention_ref(q, k, v, len_t)
+        torch.testing.assert_close(out.float(), ref.float(), rtol=1e-2,
+                                   atol=2e-3)
+
+
+def test_decode_workspace_is_reused_across_calls_and_shapes(cuda):
+    """One cached workspace per (device, shape): calls of one shape with
+    other lengths reuse it and stay right, another shape gets its own,
+    and every call leaves the ticket counters at zero."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    shapes = [(8, 15, 5, 2048, 64), (2, 56, 8, 1024, 128),
+              (8, 15, 5, 2048, 64)]
+    for B, H, Hkv, T, hd in shapes:
+        q = _randn(gen, (B, H, hd), torch.float32, cuda)
+        k = _randn(gen, (B, Hkv, T, hd), torch.float32, cuda)
+        v = _randn(gen, (B, Hkv, T, hd), torch.float32, cuda)
+        for length, window in ((T, 0), (37, 0), (T - 5, 64), (3, 0)):
+            len_t = torch.tensor(length, dtype=torch.int32, device=cuda)
+            out = da_ops.decode_attention(q, k, v, len_t, window=window)
+            ref = decode_attention_ref(q, k, v, len_t, window=window)
+            torch.testing.assert_close(out, ref, rtol=2e-5, atol=2e-5)
+            for _, _, counters in da_ops._WORKSPACES.values():
+                assert int(counters.abs().sum()) == 0
+    keys = {key[1:] for key in da_ops._WORKSPACES}
+    f32_ring = {hd: da_ops.ring_bytes(hd, torch.float32) for hd in (64, 128)}
+    assert (40, da_ops.num_splits(40, 2048, f32_ring[64]), 4, 64) in keys
+    assert (16, da_ops.num_splits(16, 1024, f32_ring[128]), 8, 128) in keys
+
+
+def test_each_wrapper_counts_its_launches(cuda):
+    """One launch per decode call; three per ssd_scan call of either
+    variant; none for a call that raises."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q = _randn(gen, (2, 6, 64), torch.bfloat16, cuda)
+    k = _randn(gen, (2, 2, 128, 64), torch.bfloat16, cuda)
+    da_ops.zero_launches()
+    for length in (1, 50, 128):
+        da_ops.decode_attention(q, k, k, length)
+    with pytest.raises(TypeError):
+        da_ops.decode_attention(q.half(), k.half(), k.half(), 3)
+    assert da_ops.launches == 3
+    assert da_ops.launches_by_variant == {"split": 3}
+    ssd_ops.zero_launches()
+    for dtype in (torch.float32, torch.bfloat16, torch.float32):
+        x, dt, A, B, C = ssd_inputs((1, 64, 4, 16, 16, 16, False), dtype,
+                                    cuda)
+        ssd_ops.ssd_scan(x, dt, A, B, C, chunk=16)
+    assert ssd_ops.launches_by_variant == {"tc": 3, "fma": 6}
+    assert ssd_ops.launches == 9
+
+
 def ssd_inputs(case, dtype, device, seed=0):
     """The reference's SSD test inputs (x, B, C normal; dt uniform in
     [0.001, 0.1]; A uniform in [-2, -0.5]) or, with strong decay, A = -16
@@ -280,7 +354,7 @@ def test_ssm_models_decode_matches_forward_through_the_kernels(cuda, arch):
         outs.append(logits)
     torch.testing.assert_close(torch.stack(outs, 1), ref, rtol=2e-3,
                                atol=2e-3)
-    assert ssd_ops.launches == s0 + cfg.num_layers
+    assert ssd_ops.launches == s0 + 3 * cfg.num_layers     # 3 per call
     slots = cfg.num_layers // cfg.attn_every if cfg.attn_every else 0
     assert fa_ops.launches == f0 + slots
     assert da_ops.launches == d0 + S * slots

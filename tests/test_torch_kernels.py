@@ -12,7 +12,9 @@ from repro.kernels.flash_attention.kernel import flash_attention_bhsd
 from repro.kernels.flash_attention.ref import \
     attention_ref as jax_attention_ref
 from repro_torch.kernels.decode_attention import ops as da_ops
-from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+from repro_torch.kernels.decode_attention.ref import (decode_attention_ref,
+                                                      decode_attention_split,
+                                                      split_tile)
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
@@ -184,3 +186,82 @@ def test_flash_wrapper_takes_each_variants_plain_version_on_cpu():
                        attention_ref(q[..., :32], k[..., :32], v[..., :32]))
     assert fa_ops.launches == 0
     assert fa_ops.launches_by_variant == {"wgmma": 0, "fma": 0}
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 7])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", DA_SHAPES)
+def test_decode_split_matches_pallas_kernel(case, dtype, splits):
+    """The split kernel's algorithm (per-split partials over whole tiles,
+    log-sum-exp merge in split order) gives the Pallas kernel's output;
+    with the kernel's tile (32 or 64 rows here) many of these splits are
+    empty."""
+    B, H, Hkv, T, hd, bk, length, window = case
+    (jq, jk, jv), (tq, tk, tv) = _inputs(
+        [(B, H, hd), (B, Hkv, T, hd), (B, Hkv, T, hd)], dtype, 2)
+    ref = decode_attention_bhd(jq, jk, jv, jnp.int32(length), window=window,
+                               block_k=bk, interpret=True)
+    port = decode_attention_split(tq, tk, tv,
+                                  torch.tensor(length, dtype=torch.int32),
+                                  window=window, splits=splits)
+    assert port.dtype == tq.dtype and port.shape == tq.shape
+    _close(port, ref, dtype)
+
+
+# (B, H, Hkv, T, hd, length, window, tile, splits): length 0 and 1, a
+# length just past a split boundary, length > T with and without a
+# window, a window inside one split, more splits than tiles
+SPLIT_EDGES = [
+    (1, 4, 2, 64, 32, 0, 0, 8, 3), (2, 6, 2, 64, 32, 1, 0, 8, 4),
+    (1, 4, 1, 128, 32, 33, 0, 8, 4), (1, 4, 1, 128, 32, 65, 0, 16, 4),
+    (2, 6, 2, 64, 32, 90, 0, 8, 5), (1, 6, 2, 64, 32, 80, 24, 8, 5),
+    (1, 4, 2, 256, 32, 200, 5, 8, 7), (1, 4, 2, 256, 32, 200, 96, 16, 2),
+    (1, 8, 1, 96, 16, 96, 0, 8, 16),
+]
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", SPLIT_EDGES)
+def test_decode_split_edges_match_pallas_kernel(case, dtype):
+    B, H, Hkv, T, hd, length, window, tile, splits = case
+    (jq, jk, jv), (tq, tk, tv) = _inputs(
+        [(B, H, hd), (B, Hkv, T, hd), (B, Hkv, T, hd)], dtype, 9)
+    ref = decode_attention_bhd(jq, jk, jv, jnp.int32(length), window=window,
+                               block_k=16, interpret=True)
+    port = decode_attention_split(tq, tk, tv, length, window=window,
+                                  splits=splits, tile=tile)
+    assert torch.isfinite(port.float()).all()
+    _close(port, ref, dtype)
+    if length == 0:
+        assert torch.equal(port, torch.zeros_like(port))
+
+
+def test_decode_split_rules():
+    """The wrapper's launch shape: heads per block, the bytes a block's
+    ring keeps in flight, splits from the shapes only (about 96 KB of
+    loads in flight an SM, no split under 320 rows of T, one split once
+    the units fill the card), and the kernel's tile."""
+    reps = (1, 2, 3, 4, 5, 7, 8, 12)
+    assert [da_ops.heads_per_block(r, torch.float32) for r in reps] == \
+        [1, 2, 4, 4, 8, 8, 8, 8]
+    assert {da_ops.heads_per_block(r, torch.bfloat16) for r in reps} == {8}
+    bf16, f32 = torch.bfloat16, torch.float32
+    assert [da_ops.ring_bytes(hd, bf16) for hd in (64, 128, 256)] == \
+        [49152, 98304, 131072]
+    assert [da_ops.ring_bytes(hd, f32) for hd in (16, 64, 112)] == \
+        [32768, 32768, 28672]
+    ring64, ring128 = da_ops.ring_bytes(64, bf16), da_ops.ring_bytes(128, bf16)
+    assert da_ops.num_splits(40, 512, ring64) == 1      # SmolLM-360M serving
+    assert da_ops.num_splits(40, 2048, ring64) == 6     # its full context
+    assert da_ops.num_splits(40, 1024, ring64) == 3
+    assert da_ops.num_splits(40, 8192, ring64) == 7
+    assert da_ops.num_splits(64, 16384, ring128) == 2   # DeepSeek-Coder-33B
+    assert da_ops.num_splits(16, 16384, ring128) == 8
+    assert da_ops.num_splits(16, 16384, ring128, sm_count=64) == 4
+    assert da_ops.num_splits(40, 8192, da_ops.ring_bytes(64, f32)) == 10
+    assert da_ops.num_splits(64, 100, ring64) == 1
+    assert da_ops.num_splits(1056, 1 << 20, ring64) == 1
+    assert da_ops.num_splits(1, 63, ring64) == 1
+    assert {split_tile(hd, 2) for hd in (16, 64, 96, 112, 128, 256)} == {64}
+    assert [split_tile(hd, 4) for hd in (16, 64, 96, 112, 128, 256)] == \
+        [64, 16, 8, 8, 8, 4]

@@ -124,7 +124,7 @@ def test_strong_decay_gives_finite_output():
 def test_wrapper_takes_the_plain_version_for_cpu_tensors():
     """bf16 dispatches to the tensor-core kernel, whose plain version is
     the three steps with its bf16 rounding points; f32 to the FMA kernel,
-    whose plain version is the f32 chunked algorithm."""
+    whose plain version is the same three steps in f32."""
     ssd_ops.zero_launches()
     _, (x, dt, A, B, C) = _inputs(2, 64, 4, 16, 16, "bfloat16", seed=5)
     y, none = ssd_ops.ssd(x, dt, A, B, C, chunk=16, head_block=2)
@@ -134,7 +134,7 @@ def test_wrapper_takes_the_plain_version_for_cpu_tensors():
     assert torch.equal(y, ssd_ops.ssd(x, dt, A, B, C, chunk=16)[0])
     _, (x, dt, A, B, C) = _inputs(2, 64, 4, 16, 16, "float32", seed=5)
     assert torch.equal(ssd_ops.ssd(x, dt, A, B, C, chunk=16)[0],
-                       ssd_scan_ref(x, dt, A, B[:, :, 0], C[:, :, 0], 16))
+                       ssd_scan_chunked(x, dt, A, B[:, :, 0], C[:, :, 0], 16))
     assert ssd_ops.launches == 0
     assert ssd_ops.launches_by_variant == {"tc": 0, "fma": 0}
 
@@ -230,3 +230,42 @@ def test_ssd_variant_dispatch():
         if ok:
             with pytest.raises(TypeError):
                 ssd_ops.variant(torch.float16, p, n, chunk)
+
+
+def test_fma_plain_version_is_the_f32_three_steps():
+    """PLAIN["fma"] is ssd_scan_chunked without bf16 points: the f32
+    algorithm the three-launch f32 kernel follows, held to the Pallas
+    kernel above; the wrapper's CPU path gives it bit for bit, and it
+    agrees with the model's chunked algorithm within f32 rounding."""
+    fma = ssd_ops.PLAIN["fma"]
+    assert fma.func is ssd_scan_chunked and fma.keywords == \
+        {"bf16_points": False}
+    assert ssd_ops.LAUNCHES_PER_CALL == {"tc": 3, "fma": 3}
+    for case in STEP_SHAPES:
+        b, s, h, p, n, chunk, _, _ = case
+        _, (x, dt, A, B, C) = _step_inputs(case, "float32", 10)
+        y = ssd_ops.ssd_scan(x, dt, A, B[:, :, 0], C[:, :, 0], chunk=chunk)
+        assert torch.equal(y, fma(x, dt, A, B[:, :, 0], C[:, :, 0], chunk))
+        torch.testing.assert_close(
+            y, ssd_scan_ref(x, dt, A, B[:, :, 0], C[:, :, 0], chunk),
+            **TOL["float32"])
+
+
+@pytest.mark.parametrize("shape", [
+    (2, 16, 80, 64, 128, 128), (2, 2, 80, 64, 128, 128),
+    (2, 2, 112, 64, 64, 128), (1, 4, 4, 16, 16, 16), (3, 7, 13, 32, 64, 64)])
+def test_fma_heads_per_block_fills_the_card(shape):
+    """The f32 kernel's heads per block: in 1..10, and no choice with
+    fewer waves of blocks over 132 SMs at equal or lower cost exists."""
+    b, nc, h, p, n, q = shape
+    hb = ssd_ops.heads_per_block(b, nc, h, p, n, q)
+    assert 1 <= hb <= 10
+
+    def cost(k):
+        waves = -(-b * nc * -(-h // k) // 132)
+        return waves * (k * (2 * q * p * n + q * q * p) + 2 * q * q * n)
+    assert all(cost(hb) <= cost(k) for k in range(1, 11))
+    if shape == (2, 16, 80, 64, 128, 128):       # Mamba2-2.7B, s = 2048
+        assert hb == 10
+    if shape == (2, 2, 80, 64, 128, 128):        # the same at s = 256
+        assert hb == 3
