@@ -28,22 +28,34 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
   8. timings at the main paths' shapes: each variant, its plain version,
      and one PyTorch library call as a yardstick where one computes the
      same function (the port never calls it); decode_attention also at
-     the full-context step's shape and at DeepSeek-Coder-33B's heads over
-     a 16384-token cache, and at one split fewer and more than its rule
-     picks.  `ms`, `plain_ms` and `library_ms` are device time per call
-     (the kernels' durations from torch.profiler); `call_ms` is CUDA-event
-     time over back-to-back calls, which the host's launch cost bounds at
-     small shapes.
+     the full-context step's shape, at DeepSeek-Coder-33B's heads over
+     a 16384-token cache, at the f32 shapes of phases 4 and 7, and at one
+     split fewer and more than its rule picks.  `ms`, `plain_ms` and
+     `library_ms` are device time per call (the kernels' durations from
+     torch.profiler); `call_ms` is CUDA-event time over back-to-back
+     calls, which the host's launch cost bounds at small shapes;
+  9. training: SmolLM-360M at full width in bf16 (remat full, eager
+     attention, AdamW) on the deterministic token stream, 4 x 2048
+     tokens a step, 10 steps: loss and grad_norm per step (finite, the
+     last loss below the first), p50 step time, tokens/s, peak memory,
+     and one profiled step; the same start with remat "dots" (2 steps:
+     step 1's loss identical, grad_norm within 1e-3) and with Adafactor
+     (3 steps, the reference's factored-stat shapes); then one f32 step
+     of its widths cut to 2 layers on the card against the same step on
+     the CPU, for microbatches 1 and 2 and with int8 grad compression.
 Phase 5 ends with a full-context SmolLM-360M decode step: bf16, 8 slots
 of a 2048-token cache filled with seeded random K/V, position 2000; 32
 steps timed, one profiled (device busy, idle share, decode_attention's
 share), the first step's logits against the eager path.
-Phases 4-5, 6 and 7 are the three main paths.  The launch counters are
-zeroed just before each and read just after it; every kernel variant of a
-path must have launched there, and the JSON line's `launches` is a
-kernel's sum over the three (one ssd_scan call of either variant is three
-launches).  The last two lines are a JSON object of per-kernel numbers,
-with a `variants` entry per kernel, and {"ok": true, "device": {...}}.
+Phases 4-5, 6 and 7 are the three serving main paths, phase 9 the
+training path.  The launch counters are zeroed just before each and read
+just after it; every kernel variant of a serving path must have launched
+there, and none on the training path (the kernels are forward-only, so
+training takes the eager attention path, as the reference's does).  The
+JSON line's `launches` is a kernel's sum over the paths (one ssd_scan
+call of either variant is three launches).  The last two lines are a
+JSON object of per-kernel numbers, with a `variants` entry per kernel,
+and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -62,6 +74,10 @@ import torch.nn.functional as F
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.convert import (train_state_from_numpy,  # noqa: E402
+                                 train_state_to_numpy)
+from repro_torch.data.pipeline import DataConfig, TokenStream  # noqa: E402
+from repro_torch.dist.compression import quantize_codes  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as da_ops  # noqa: E402
 from repro_torch.kernels.decode_attention.ref import \
@@ -73,6 +89,11 @@ from repro_torch.models import (decode_step, forward, init_cache,  # noqa: E402
                                 init_params, prefill)
 from repro_torch.serve.engine import (Request, ServeConfig,  # noqa: E402
                                       ServingEngine)
+from repro_torch.train.optim import OptimizerConfig  # noqa: E402
+from repro_torch.train.step import (TrainConfig,  # noqa: E402
+                                    init_train_state, loss_and_grads,
+                                    make_train_step)
+from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12                 # H100 SXM data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12,     # dense tensor-core bf16
@@ -114,6 +135,11 @@ DECODE_CASES = [
 DEEPSEEK_16K = (8, 56, 8, 16384, 128, 16384, 0)
 # the full-context decode step's attention: 8 slots x 2048, length 2001
 FULL_CONTEXT = (8, 15, 5, 2048, 64, 2001, 0)
+# the f32 decode steps of the decode-vs-forward phases, at half their
+# cache (each runs lengths 1..T): SmolLM-360M's B=2 T=64 (phase 4),
+# Zamba2-7B's shared attention B=2 T=256 (phase 7)
+DECODE_F32_SMOLLM = (2, 15, 5, 64, 64, 32, 0)
+DECODE_F32_ZAMBA = (2, 32, 32, 256, 112, 128, 0)
 # (B, H, Hkv, Sq, Sk, hd, causal, window): the reference's FA_SHAPES, a
 # row set with no visible key, then SmolLM-360M prompts
 FLASH_CASES = [
@@ -155,12 +181,6 @@ DECODE_REL_LIMIT = 0.1
 
 def log(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
-
-
-def leaves(tree):
-    if isinstance(tree, dict):
-        return [x for v in tree.values() for x in leaves(v)]
-    return [tree]
 
 
 def randn(gen, shape, dtype, device):
@@ -481,7 +501,7 @@ def smollm_path(device):
     base = get_config("smollm-360m").scaled(attn_impl="pallas")
     cfg32 = base.scaled(dtype="float32")
     params32 = init_params(cfg32, seed=0, device=device)
-    n_params = sum(t.numel() for t in leaves(params32))
+    n_params = sum(t.numel() for t in tree_leaves(params32))
     err = decode_vs_forward(cfg32, params32, device)
     log("decode-vs-forward", f"smollm-360m full width ({n_params} "
         f"params) f32 B=2 S=64: max_abs_err {err:.3g} "
@@ -490,7 +510,7 @@ def smollm_path(device):
     cfg16 = base.scaled(dtype="bfloat16")
     params16 = init_params(cfg16, seed=0, device=device)
     weight_bytes = sum(t.numel() * t.element_size()
-                       for t in leaves(params16))
+                       for t in tree_leaves(params16))
     requests = make_requests(cfg16.vocab_size)
     torch.cuda.reset_peak_memory_stats()
     eng, wall, step_s = serve(cfg16, params16,
@@ -549,8 +569,9 @@ def kernel_name(key: str) -> str:
 def profile_call(fn):
     """One call of `fn` under torch.profiler.  Returns (wall ms, device
     busy ms: the sum of the kernels' times, [(kernel name, ms, count)]
-    largest first).  The profiler slows the host, so 1 - busy / wall is
-    an upper bound for the idle share of an unprofiled call."""
+    largest first, [(operator, its own kernels' ms, count)] largest
+    first).  The profiler slows the host, so 1 - busy / wall is an upper
+    bound for the idle share of an unprofiled call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -565,13 +586,17 @@ def profile_call(fn):
               if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
     kernels = sorted(((e.key, dev_us(e) / 1e3, e.count) for e in events),
                      key=lambda kv: kv[1], reverse=True)
-    return wall_ms, sum(ms for _, ms, _ in kernels), kernels
+    ops = sorted(((e.key, dev_us(e) / 1e3, e.count)
+                  for e in prof.key_averages()
+                  if e.device_type == DeviceType.CPU and dev_us(e) > 0),
+                 key=lambda kv: kv[1], reverse=True)
+    return wall_ms, sum(ms for _, ms, _ in kernels), kernels, ops
 
 
 def where_the_time_goes(cfg, params, tokens, S, top=8):
     """One more prefill under torch.profiler: the device's busy time
     against the call's wall time, and the kernels that take the most."""
-    wall_ms, busy_ms, kernels = profile_call(
+    wall_ms, busy_ms, kernels, _ = profile_call(
         lambda: prefill(params, {"tokens": tokens}, cfg, S))
     parts = ", ".join(f"{k[:48]} {ms:.3f} ms x{n}"
                       for k, ms, n in kernels[:top])
@@ -616,7 +641,7 @@ def full_context_decode(cfg16, params16, device, slots=8, T=2048, pos=2000,
         _, cache = decode_step(params16, cache, toks[1 + t], cfg16)
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
-    wall_ms, busy_ms, kernels = profile_call(
+    wall_ms, busy_ms, kernels, _ = profile_call(
         lambda: decode_step(params16, cache, toks[-1], cfg16))
     da_ms = sum(ms for k, ms, _ in kernels if "decode_split_kernel" in k)
     out = dict(rel=rel, top1=agree, p50_ms=1e3 * float(np.median(step_s)),
@@ -646,7 +671,7 @@ def mamba2_path(device):
     base = get_config("mamba2-2.7b").scaled(attn_impl="pallas")
     cfg32 = base.scaled(dtype="float32")
     params32 = init_params(cfg32, seed=0, device=device)
-    n_params = sum(t.numel() for t in leaves(params32))
+    n_params = sum(t.numel() for t in tree_leaves(params32))
     err = decode_vs_forward(cfg32, params32, device, S=256)
     log("mamba2", f"decode-vs-forward: mamba2-2.7b full width ({n_params} "
         f"params) f32 B=2 S=256 (two chunks of 128): max_abs_err {err:.3g} "
@@ -659,7 +684,7 @@ def mamba2_path(device):
     cfg16 = base.scaled(dtype="bfloat16")
     params16 = init_params(cfg16, seed=0, device=device)
     weight_bytes = sum(t.numel() * t.element_size()
-                       for t in leaves(params16))
+                       for t in tree_leaves(params16))
     wall, rel, agree = timed_prefill(cfg16, params16, device, seed=2)
     log("mamba2", f"prefill bf16 B=2 S=2048: {1e3 * wall:.3f} ms, "
         f"{2 * 2048 / wall:.1f} tokens/s; against the eager path (bf16 "
@@ -674,7 +699,7 @@ def mamba2_path(device):
                               ServeConfig(slots=8, max_seq=512), requests,
                               device)
     ssm_bytes = sum(t.numel() * t.element_size()
-                    for t in leaves(eng.cache["ssm"]))
+                    for t in tree_leaves(eng.cache["ssm"]))
     report_serving("mamba2-2.7b", eng, requests, wall, step_s, weight_bytes,
                    cfg16.vocab_size)
     log("mamba2", f"SSM cache at 8 slots: {ssm_bytes} B "
@@ -690,7 +715,7 @@ def hybrid_path(device):
     cfg = get_config("zamba2-7b").scaled(num_layers=12, attn_impl="pallas",
                                          dtype="float32")
     params = init_params(cfg, seed=0, device=device)
-    n_params = sum(t.numel() for t in leaves(params))
+    n_params = sum(t.numel() for t in tree_leaves(params))
     err = decode_vs_forward(cfg, params, device, S=256)
     log("hybrid", f"decode-vs-forward: zamba2-7b widths, 12 layers "
         f"({n_params} params, shared attention after layers 6 and 12, "
@@ -804,6 +829,13 @@ def decode_and_ssd_timings(device, dec_len: int) -> dict:
     out["decode_16k"] = time_decode(DEEPSEEK_16K, bf16, device)
     log("timing", f"decode_attention bf16 B=8 H=56 Hkv=8 T=16384 hd=128 "
         f"len=16384 (DeepSeek-Coder-33B's heads): {out['decode_16k']}")
+    for key, case, what in (("decode_f32_t64", DECODE_F32_SMOLLM,
+                             "phase 4's, SmolLM-360M, 2048 launches"),
+                            ("decode_f32_t256", DECODE_F32_ZAMBA,
+                             "phase 7's, Zamba2-7B widths, 512 launches")):
+        out[key] = time_decode(case, f32, device)
+        log("timing", f"decode_attention f32 (B,H,Hkv,T,hd,len)={case[:6]} "
+            f"({what}, lengths 1..T; timed at T/2): {out[key]}")
     for case in ((8, 15, 5, 512, 64, dec_len, 0), FULL_CONTEXT,
                  DEEPSEEK_16K):
         decode_split_neighbours(case, device)
@@ -815,6 +847,273 @@ def decode_and_ssd_timings(device, dec_len: int) -> dict:
         log("timing", f"ssd_scan fma f32 (b,s,h,p,n,chunk)={case[:6]}: "
             f"{out[key]}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 9: training
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS = 10
+# card against CPU, f32 with TF32 off: the reference's own limits
+# (tests/test_elastic_and_microbatch.py:33-38 for the new params)
+TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL, TRAIN_PARAM_TOL = 1e-5, 1e-4, 2e-5
+
+
+def clone(tree):
+    return tree_map(torch.clone, tree)
+
+
+def train_steps(cfg, tcfg, state, batches, timed=False):
+    """Run `batches` through train_step from `state` (donated).  Returns
+    (state, losses, grad_norms, per-step seconds, host clock around each
+    step ending in a synchronise)."""
+    step = make_train_step(cfg, tcfg)
+    losses, gnorms, secs = [], [], []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        if timed:
+            log("train", f"step {int(m['step'])}: loss {losses[-1]:.6f} "
+                f"grad_norm {gnorms[-1]:.6f} ({1e3 * secs[-1]:.3f} ms)")
+    if not all(np.isfinite(losses + gnorms)):
+        raise AssertionError(f"non-finite loss or grad_norm: {losses} "
+                             f"{gnorms}")
+    return state, losses, gnorms, secs
+
+
+def adafactor_shapes_ok(params, stats) -> int:
+    """The reference's factored stats (optim.py:101-110): vr over
+    shape[:-1] and vc over shape[:-2] + shape[-1:] where both trailing
+    dims are >= 128, else a full v.  Returns the factored leaves."""
+    def check(p, st):
+        shape = tuple(p.shape)
+        if len(shape) >= 2 and min(shape[-2:]) >= 128:
+            want = {"vr": shape[:-1], "vc": shape[:-2] + shape[-1:]}
+        else:
+            want = {"v": shape}
+        got = {k: tuple(v.shape) for k, v in st.items()}
+        if got != want or any(v.dtype != torch.float32 for v in st.values()):
+            raise AssertionError(f"adafactor stats {got} for a {shape} "
+                                 f"leaf, want {want} in f32")
+        return "vr" in want
+    return sum(tree_leaves(tree_map(check, params, stats)))
+
+
+def train_path(device):
+    """Phase 9 (a)-(c): SmolLM-360M at full width, bf16, remat full, eager
+    attention, AdamW at lr 3e-4, wd 0.1, clip 1.0, on 10 batches of the
+    deterministic mixture stream (4 x 2048 tokens)."""
+    cfg = get_config("smollm-360m").scaled(attn_impl="xla",
+                                           remat_policy="full")
+    opt = OptimizerConfig(lr=3e-4, weight_decay=0.1, grad_clip=1.0)
+    tcfg = TrainConfig(optimizer=opt)
+    B, S = 4, 2048
+    stream = TokenStream(DataConfig(vocab_size=cfg.vocab_size, seq_len=S,
+                                    global_batch=B, seed=0,
+                                    mixture_docs=True), 0)
+    batches = [stream.batch_at(s) for s in range(TRAIN_STEPS)]
+    start = init_train_state(cfg, tcfg, seed=0, device=device)
+    n_params = sum(t.numel() for t in tree_leaves(start["params"]))
+    log("train", f"smollm-360m full width ({n_params} params, {cfg.dtype}, "
+        f"remat {cfg.remat_policy}, attn {cfg.attn_impl}, AdamW lr {opt.lr} "
+        f"wd {opt.weight_decay} clip {opt.grad_clip}), B={B} S={S}, "
+        f"{TRAIN_STEPS} steps")
+
+    # (a) 10 steps
+    free()
+    torch.cuda.reset_peak_memory_stats()
+    state, losses, gnorms, secs = train_steps(cfg, tcfg, clone(start),
+                                              batches, timed=True)
+    peak = torch.cuda.max_memory_allocated()
+    p50 = float(np.median(secs[1:]))
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses}")
+    wall_ms, busy_ms, kernels, ops = profile_call(
+        lambda: make_train_step(cfg, tcfg)(state, batches[0]))
+    del state
+    top = ", ".join(f"{kernel_name(k)} {ms:.3f} ms x{n}"
+                    for k, ms, n in kernels[:6])
+    parts = ", ".join(f"{k} {ms:.3f} ms x{n}" for k, ms, n in ops[:10])
+    out = dict(p50_ms=1e3 * p50, tokens_per_s=B * S / p50,
+               max_memory_allocated=peak, loss_first=losses[0],
+               loss_last=losses[-1], profiled_wall_ms=wall_ms,
+               busy_ms=busy_ms, idle_share=max(0.0, 1 - busy_ms / wall_ms))
+    log("train", f"(a) loss {losses[0]:.6f} -> {losses[-1]:.6f}; p50 step "
+        f"(steps 2-{TRAIN_STEPS}) {out['p50_ms']:.3f} ms, "
+        f"{out['tokens_per_s']:.1f} tokens/s, max_memory_allocated {peak} "
+        f"B; one profiled step {wall_ms:.3f} ms wall, device busy "
+        f"{busy_ms:.3f} ms, idle share {out['idle_share']:.3f}; top "
+        f"kernels: {top}; operators by their own kernels' device time: "
+        f"{parts}")
+
+    # (b) remat "dots" from the same start, 2 steps
+    free()
+    torch.cuda.reset_peak_memory_stats()
+    _, dlosses, dgnorms, _ = train_steps(
+        cfg.scaled(remat_policy="dots"), tcfg, clone(start), batches[:2])
+    dots_peak = torch.cuda.max_memory_allocated()
+    if dlosses[0] != losses[0]:
+        raise AssertionError(f"dots step-1 loss {dlosses[0]} != full "
+                             f"{losses[0]}")
+    rel = abs(dgnorms[0] - gnorms[0]) / gnorms[0]
+    if rel > 1e-3:
+        raise AssertionError(f"dots grad_norm {dgnorms[0]} vs {gnorms[0]}")
+    log("train", f"(b) remat dots: step-1 loss {dlosses[0]:.6f} identical "
+        f"to full's; grad_norm {dgnorms[0]:.6f} vs {gnorms[0]:.6f} "
+        f"(relative {rel:.3g}, limit 1e-3); max_memory_allocated dots "
+        f"{dots_peak} B, full {peak} B")
+    out.update(dots_max_memory_allocated=dots_peak)
+
+    # (c) Adafactor, 3 steps
+    free()
+    acfg = TrainConfig(optimizer=OptimizerConfig(name="adafactor"))
+    astate = init_train_state(cfg, acfg, seed=0, device=device)
+    astate, alosses, _, _ = train_steps(cfg, acfg, astate, batches[:3])
+    factored = adafactor_shapes_ok(astate["params"], astate["opt"]["stats"])
+    log("train", f"(c) adafactor 3 steps: losses {alosses}; "
+        f"{factored} factored leaves of "
+        f"{len(tree_leaves(astate['params']))}, stat shapes as the "
+        "reference's")
+    del start, astate
+    free()
+    return out
+
+
+def _leaf_paths(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree)
+                for p in _leaf_paths(tree[k], f"{prefix}/{k}")]
+    return [prefix]
+
+
+def train_card_vs_cpu(cfg, device, B, S, seed=0, lr=1e-3) -> dict:
+    """One f32 train step (microbatches 1 and 2, and with int8 grad
+    compression) from the same state on the card and on the CPU: loss
+    within 1e-5 relative, grad_norm within 1e-4, new params within rtol =
+    atol = 2e-5.  First the grads themselves: each leaf within 2e-4 of
+    its max |g| (the whole-model tolerance), and the int8 round trip of
+    the same grads equal on both devices.
+
+    Two mechanisms move a new parameter by more than 2e-5 while the grads
+    agree, and each out-of-limit element must be one of them (it is
+    counted and its values printed; any other fails): Adam's first step
+    is lr * g / (|g| + eps), which turns f32 noise in a near-zero grad
+    (|g| <= NEAR_ZERO = 100 eps on both devices) into a visible update;
+    and with compression, an int8 code that differs between the card's
+    grads and the CPU's (noise across a rounding boundary)."""
+    cfg = cfg.scaled(dtype="float32", attn_impl="xla")
+    stream = TokenStream(DataConfig(vocab_size=cfg.vocab_size, seq_len=S,
+                                    global_batch=B, seed=seed), 0)
+    batch = stream.batch_at(0)
+    opt = OptimizerConfig(lr=lr)
+    host = init_train_state(cfg, TrainConfig(optimizer=opt), seed=seed,
+                            device="cpu")
+    card = train_state_from_numpy(train_state_to_numpy(host), device)
+    near_zero, flips = grads_card_vs_cpu(cfg, card, host, batch,
+                                         100 * opt.eps)
+    report = {}
+    for name, tcfg in (
+            ("microbatches 1", TrainConfig(optimizer=opt)),
+            ("microbatches 2", TrainConfig(optimizer=opt, microbatches=2)),
+            ("grad_compression", TrainConfig(optimizer=opt,
+                                             grad_compression=True))):
+        step = make_train_step(cfg, tcfg)
+        new_c, m_c = step(clone(card), batch)
+        new_h, m_h = step(clone(host), batch)
+        l_c, l_h = float(m_c["loss"]), float(m_h["loss"])
+        g_c, g_h = float(m_c["grad_norm"]), float(m_h["grad_norm"])
+        if abs(l_c - l_h) > TRAIN_LOSS_RTOL * abs(l_h):
+            raise AssertionError(f"{name}: loss card {l_c} cpu {l_h}")
+        if abs(g_c - g_h) > TRAIN_GNORM_RTOL * abs(g_h):
+            raise AssertionError(f"{name}: grad_norm card {g_c} cpu {g_h}")
+        worst, amplified, flipped = 0.0, 0, 0
+        for path, pc, ph in zip(_leaf_paths(new_h["params"]),
+                                tree_leaves(new_c["params"]),
+                                tree_leaves(new_h["params"])):
+            pc = pc.cpu()
+            err = (pc - ph).abs()
+            bad = err > TRAIN_PARAM_TOL + TRAIN_PARAM_TOL * ph.abs()
+            worst = max(worst, float(err.max()))
+            if not bad.any():
+                continue
+            explained = near_zero[path]["mask"]
+            if tcfg.grad_compression:
+                explained = explained | flips[path]
+            unexplained = bad & ~explained
+            if unexplained.any():
+                idx = unexplained.nonzero()[:4].tolist()
+                raise AssertionError(
+                    f"{name}: elements of {path} outside rtol = atol = "
+                    f"{TRAIN_PARAM_TOL} at {idx}, not at a near-zero grad "
+                    f"or an int8 code flip: card "
+                    f"{pc[unexplained][:4].tolist()} cpu "
+                    f"{ph[unexplained][:4].tolist()}")
+            n_amp = int((bad & near_zero[path]["mask"]).sum())
+            amplified += n_amp
+            flipped += int(bad.sum()) - n_amp
+            idx = bad.nonzero()[:3]
+            grad = near_zero[path]
+            log("train", f"(d) {name}: {int(bad.sum())} elements of {path} "
+                f"outside the limit ({n_amp} at a near-zero grad), up to "
+                f"{float(err[bad].max()):.3g}; e.g. at {idx.tolist()}: new "
+                f"param card {[float(pc[tuple(i)]) for i in idx]} cpu "
+                f"{[float(ph[tuple(i)]) for i in idx]}, grad card "
+                f"{[float(grad['card'][tuple(i)]) for i in idx]} cpu "
+                f"{[float(grad['cpu'][tuple(i)]) for i in idx]}")
+        report[name] = dict(loss_card=l_c, loss_cpu=l_h, grad_norm_card=g_c,
+                            grad_norm_cpu=g_h, max_param_err=worst,
+                            at_near_zero_grads=amplified,
+                            at_code_flips=flipped)
+        log("train", f"(d) {name}: loss card {l_c:.8f} cpu {l_h:.8f}; "
+            f"grad_norm card {g_c:.8f} cpu {g_h:.8f}; new params max |card "
+            f"- cpu| {worst:.3g} (rtol = atol = {TRAIN_PARAM_TOL}); outside "
+            f"it: {amplified} elements at a near-zero grad, {flipped} at an "
+            "int8 code flip")
+    return report
+
+
+def grads_card_vs_cpu(cfg, card, host, batch, near):
+    """The step's grads on both devices, from the same params and batch:
+    each leaf within 2e-4 of its max |g|, and the int8 round trip of the
+    CPU's grads equal (codes, values, residuals) on card and CPU.  Returns
+    ({leaf path: {"mask": |g| <= near on both, "card", "cpu"}},
+    {leaf path: where the int8 codes of the card's own grads differ from
+    the CPU's})."""
+    hb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    _, _, gh = loss_and_grads(host["params"], hb, cfg)
+    device = card["step"].device
+    _, _, gc = loss_and_grads(card["params"],
+                              {k: v.to(device) for k, v in hb.items()}, cfg)
+    near_zero, flips, n_near, n_flips, n = {}, {}, 0, 0, 0
+    for path, g_h, g_c in zip(_leaf_paths(gh), tree_leaves(gh),
+                              tree_leaves(gc)):
+        g_cc = g_c.cpu()
+        scale = float(g_h.abs().max())
+        if float((g_cc - g_h).abs().max()) > 2e-4 * scale:
+            raise AssertionError(f"grads of {path} differ between card and "
+                                 f"CPU by more than 2e-4 of {scale}")
+        near_zero[path] = dict(mask=(g_h.abs() <= near) & (g_cc.abs() <= near),
+                               card=g_cc, cpu=g_h)
+        deq_h, q_h, res_h = quantize_codes(g_h)
+        deq_c, q_c, res_c = quantize_codes(g_h.to(device))
+        if not (torch.equal(q_c.cpu(), q_h) and torch.equal(deq_c.cpu(), deq_h)
+                and torch.equal(res_c.cpu(), res_h)):
+            raise AssertionError(f"int8 round trip of {path} differs between "
+                                 "the card and the CPU on the same grads")
+        flips[path] = quantize_codes(g_c)[1].cpu() != q_h
+        n_near += int(near_zero[path]["mask"].sum())
+        n_flips += int(flips[path].sum())
+        n += q_h.numel()
+    log("train", f"(d) grads: every leaf within 2e-4 of its max |g| on card "
+        f"and CPU; {n_near} of {n} elements at |g| <= {near:g} on both; "
+        "the int8 round trip of the same grads equal on card and CPU; the "
+        f"card's own grads give {n_flips} different int8 codes")
+    return near_zero, flips
 
 
 def main() -> int:
@@ -871,9 +1170,6 @@ def main() -> int:
             dec_len, full_ctx = out
         free()
         log(path, f"path took {time.perf_counter() - t0:.1f} s")
-    launches = {k: sum(p[k] for p in paths.values())
-                for k in paths["smollm"]}
-    log("timing", f"main-path launches per path: {paths}")
 
     # -- timings --------------------------------------------------------------
     bf16, f32 = torch.bfloat16, torch.float32
@@ -905,6 +1201,21 @@ def main() -> int:
         f"(three launches): {ssd}; library: none (no single PyTorch call "
         "computes the scan)")
 
+    # -- phase 9: training, which launches no kernel -------------------------
+    t0 = time.perf_counter()
+    zero_launches()
+    train = train_path(device)
+    train["card_vs_cpu"] = train_card_vs_cpu(
+        get_config("smollm-360m").scaled(num_layers=2), device, B=2, S=256)
+    paths["train"] = read_launches("train", ())
+    if any(paths["train"].values()):
+        raise AssertionError("a kernel was launched on the training path")
+    log("train", f"phase 9 took {time.perf_counter() - t0:.1f} s: {train}")
+    free()
+    launches = {k: sum(p[k] for p in paths.values())
+                for k in paths["smollm"]}
+    log("timing", f"main-path launches per path: {paths}")
+
     def variant(name, var, source, shape, timing):
         return dict(source=f"src/repro_torch/csrc/{source}",
                     launches=launches[f"{name}.{var}"], shape=shape,
@@ -931,6 +1242,8 @@ def main() -> int:
     da_vars["split"]["full_context_shape"] = tim["decode_2048"]
     da_vars["split"]["deepseek_16k"] = tim["decode_16k"]
     da_vars["split"]["full_context_step"] = full_ctx
+    da_vars["split"]["f32_smollm_t64"] = tim["decode_f32_t64"]
+    da_vars["split"]["f32_zamba2_t256"] = tim["decode_f32_t256"]
     kernels = [
         dict(name="decode_attention", route="cuda",
              source="src/repro_torch/csrc/decode_attention.cu",

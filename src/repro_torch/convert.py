@@ -1,7 +1,10 @@
-"""Carry parameter trees between the JAX package and the port.
+"""Carry parameter and train-state trees between the JAX package and
+the port.
 
 The port keeps the reference's tree: the same dict keys, layers stacked
-on a leading L axis, matmul weights stored (in, out).
+on a leading L axis, matmul weights stored (in, out); a train state is
+{"params", "opt": AdamW {"m", "v", "count"} or Adafactor {"stats",
+"count"}, "step"}, as `repro/train/step.py` builds it.
 """
 
 from __future__ import annotations
@@ -48,3 +51,27 @@ def params_to_numpy(tree):
             return t.float().numpy().astype(ml_dtypes.bfloat16)
         return t.numpy()
     return walk(tree)
+
+
+def _check_train_state(tree) -> None:
+    if set(tree) != {"params", "opt", "step"} or not (
+            set(tree["opt"]) in ({"m", "v", "count"}, {"stats", "count"})):
+        raise ValueError("not a train state: want {'params', 'opt': "
+                         "{'m', 'v', 'count'} or {'stats', 'count'}, "
+                         f"'step'}}, got keys {sorted(tree)}")
+
+
+def train_state_from_numpy(tree, device="cuda") -> dict:
+    """A train state of numpy leaves (`jax.tree.map(np.asarray, state)` of
+    the reference's) -> the same tree of tensors on `device`: params in
+    their dtypes, optimizer moments f32, `count` and `step` 0-d int32.  A
+    state trained by JAX continues in the port's `train_step`."""
+    _check_train_state(tree)
+    return params_from_numpy(tree, device)
+
+
+def train_state_to_numpy(state) -> dict:
+    """The inverse of `train_state_from_numpy`, for the reference's
+    `train_step` or a checkpoint."""
+    _check_train_state(state)
+    return params_to_numpy(state)

@@ -21,7 +21,7 @@ import functools
 
 import torch
 
-from .. import _build
+from .. import _build, refuse_grad
 from .ref import decode_attention_ref, split_tile
 
 MIN_SPLIT_ROWS = 320          # five 64-row tiles: no split of T is shorter
@@ -78,6 +78,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     int), the number of valid cache positions; positions >= min(length, T)
     and, with a window, < length - window are masked.  Returns (B, H, hd)
     in q's dtype."""
+    refuse_grad("decode_attention", q, k_cache, v_cache)
     if q.device.type == "cpu":
         return decode_attention_ref(q, k_cache, v_cache, length,
                                     window=window)

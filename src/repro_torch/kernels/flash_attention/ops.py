@@ -18,7 +18,7 @@ import functools
 
 import torch
 
-from .. import _build
+from .. import _build, refuse_grad
 from .ref import attention_ref
 
 WGMMA_HEAD_DIMS = (64, 128)
@@ -70,6 +70,7 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True,
                          window: int = 0) -> torch.Tensor:
     """q: (B, H, Sq, hd); k/v: (B, Hkv, Sk, hd) -> (B, H, Sq, hd)."""
+    refuse_grad("flash_attention", q, k, v)
     var = variant(q.dtype, q.shape[-1])
     if q.device.type == "cpu":
         return PLAIN[var](q, k, v, causal=causal, window=window)

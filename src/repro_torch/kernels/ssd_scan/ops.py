@@ -21,7 +21,7 @@ import functools
 
 import torch
 
-from .. import _build
+from .. import _build, refuse_grad
 from .ref import ssd_scan_chunked
 
 # what both kernels are written for
@@ -90,6 +90,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              chunk: int = 128) -> torch.Tensor:
     """x: (b,s,h,p); dt: (b,s,h) f32; A: (h,) f32; B/C: (b,s,n).
     Returns y: (b,s,h,p) in x's dtype."""
+    refuse_grad("ssd_scan", x, dt, A, B, C)
     if x.dim() != 4 or x.shape[1] % chunk:
         raise ValueError(f"ssd_scan: sequence of x{tuple(x.shape)} must be "
                          f"a multiple of chunk {chunk}")

@@ -2,7 +2,8 @@
 `repro.models`."""
 
 from .config import ModelConfig
-from .model import decode_step, forward, init_cache, init_params, prefill
+from .model import (decode_step, forward, init_cache, init_params, loss_fn,
+                    prefill)
 
 __all__ = ["ModelConfig", "decode_step", "forward", "init_cache",
-           "init_params", "prefill"]
+           "init_params", "loss_fn", "prefill"]

@@ -4,8 +4,11 @@ Parameters are plain dicts of tensors with the reference's names and
 layout (matmul weights stored (in, out)).  Every layer is an `init_*`
 function drawing from a `torch.Generator` and an apply function.
 `cfg.attn_impl == "pallas"` routes attention through the hand-written
-kernels (`repro_torch.kernels`); "xla" is the eager path, the counterpart
-of the reference's XLA branch.  Single device: no sharding hooks.
+kernels (`repro_torch.kernels`, forward-only); "xla" is the eager path,
+the counterpart of the reference's XLA branch, "xla_chunked" its online
+softmax over KV chunks and "xla_bhsd" its head-major layout.  Decode takes
+the eager path for every value but "pallas", as the reference's does.
+Single device: no sharding hooks.
 """
 
 from __future__ import annotations
@@ -103,11 +106,14 @@ def init_attention(gen, cfg: ModelConfig, dtype, device="cpu",
     }
 
 
+ATTN_IMPLS = ("xla", "pallas", "xla_chunked", "xla_bhsd")
+
+
 def _check_attn_impl(cfg: ModelConfig) -> None:
-    if cfg.attn_impl not in ("xla", "pallas"):
+    if cfg.attn_impl not in ATTN_IMPLS:
         raise NotImplementedError(
-            f"attn_impl={cfg.attn_impl!r} is not ported yet; "
-            "this slice has 'xla' (eager) and 'pallas' (CUDA kernels)")
+            f"attn_impl={cfg.attn_impl!r} is not ported; the port has "
+            f"{ATTN_IMPLS}")
 
 
 def attention(params, x: torch.Tensor, cfg: ModelConfig,
@@ -127,20 +133,88 @@ def attention(params, x: torch.Tensor, cfg: ModelConfig,
         from ..kernels.flash_attention import ops as fa_ops
         o = fa_ops.flash_attention(q, k, v, causal=True, window=window)
         o = o.reshape(B, S, H * hd)
+    elif cfg.attn_impl == "xla_chunked":
+        o = _attention_chunked(q.reshape(B, S, Hkv, rep, hd), k, v,
+                               positions, window=window)
+        o = o.reshape(B, S, H * hd)
+    elif cfg.attn_impl == "xla_bhsd":
+        # head-major: K/V repeated to H heads, so the scores carry a q-head
+        # axis (the reference's sharding layout; one device here)
+        kr = k.repeat_interleave(rep, dim=2)
+        vr = v.repeat_interleave(rep, dim=2)
+        scale = 1.0 / math.sqrt(hd)
+        s = torch.einsum("bshd,bthd->bhst", q, kr) * scale
+        mask = _causal_mask(positions, window)
+        s = s.masked_fill(~mask[:, None, :, :], float("-inf"))
+        p = torch.softmax(s.float(), dim=-1).to(x.dtype)
+        o = torch.einsum("bhst,bthd->bshd", p, vr).reshape(B, S, H * hd)
     else:
         q = q.reshape(B, S, Hkv, rep, hd)
         scale = 1.0 / math.sqrt(hd)
         scores = torch.einsum("bshrd,bthd->bhrst", q, k) * scale
-        ii = positions[:, :, None]                          # (B,S,1)
-        jj = positions[:, None, :]                          # (B,1,T)
-        mask = jj <= ii
-        if window:
-            mask &= jj > ii - window
+        mask = _causal_mask(positions, window)
         scores = scores.masked_fill(~mask[:, None, None, :, :],
                                     float("-inf"))
         probs = torch.softmax(scores.float(), dim=-1).to(x.dtype)
         o = torch.einsum("bhrst,bthd->bshrd", probs, v).reshape(B, S, H * hd)
     return linear(params["wo"], o)
+
+
+def _causal_mask(positions: torch.Tensor, window: int) -> torch.Tensor:
+    """(B,S,T) bool: key j visible from query i (j <= i, and j > i - window
+    with a window)."""
+    ii = positions[:, :, None]                              # (B,S,1)
+    jj = positions[:, None, :]                              # (B,1,T)
+    mask = jj <= ii
+    if window:
+        mask &= jj > ii - window
+    return mask
+
+
+def _attention_chunked(q, k, v, positions, *, window: int = 0,
+                       chunk: int = 512):
+    """Online-softmax attention over KV chunks of `chunk` rows, the
+    reference's pure-XLA flash formulation (its unrolled form): the live
+    score buffer is (B,Hkv,rep,S,chunk), not (B,Hkv,rep,S,T).
+
+    q: (B,S,Hkv,rep,hd); k/v: (B,T,Hkv,hd) -> (B,S,Hkv,rep,hd)
+    """
+    B, S, Hkv, rep, hd = q.shape
+    T = k.shape[1]
+    scale = 1.0 / math.sqrt(hd)
+    chunk = min(chunk, T)
+    pad = (-T) % chunk
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    nc = k.shape[1] // chunk
+    qpos = positions[:, :, None]                            # (B,S,1)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    m = torch.full((B, Hkv, rep, S), float("-inf"), **f32)
+    l = torch.zeros((B, Hkv, rep, S), **f32)
+    acc = torch.zeros((B, S, Hkv, rep, hd), **f32)
+    for ic in range(nc):
+        kb = k[:, ic * chunk:(ic + 1) * chunk]
+        vb = v[:, ic * chunk:(ic + 1) * chunk]
+        s = torch.einsum("bshrd,bthd->bhrst", q, kb) * scale
+        kpos = ic * chunk + torch.arange(chunk, device=q.device)[None, None]
+        mask = (kpos <= qpos) & (kpos < T)                  # (B,S,chunk)
+        if window:
+            mask &= kpos > qpos - window
+        mask = mask[:, None, None, :, :]
+        s = torch.where(mask, s.float(), float("-inf"))
+        m_new = torch.maximum(m, torch.amax(s, dim=-1))
+        # guard fully masked rows (exp(-inf - -inf))
+        m_safe = torch.where(torch.isinf(m_new), 0.0, m_new)
+        p = torch.exp(s - m_safe[..., None])
+        p = torch.where(mask, p, 0.0)
+        alpha = torch.where(torch.isinf(m), 0.0, torch.exp(m - m_safe))
+        l = l * alpha + torch.sum(p, dim=-1)
+        pv = torch.einsum("bhrst,bthd->bshrd", p.to(q.dtype), vb)
+        acc = acc * alpha.permute(0, 3, 1, 2)[..., None] + pv.float()
+        m = m_new
+    denom = torch.clamp(l, min=1e-30).permute(0, 3, 1, 2)[..., None]
+    return (acc / denom).to(q.dtype)
 
 
 def attention_decode(params, x: torch.Tensor, cfg: ModelConfig,

@@ -2,18 +2,23 @@
 `repro/models/model.py`.
 
 embedding -> stacked layers (a Python loop over the leading L axis, in
-place of `lax.scan`) -> norm -> tied or separate unembedding.  Hybrid
-models run Mamba2 blocks and apply one *shared* attention + MLP block
-after every `attn_every`-th layer (Zamba2-style).  Parameters keep the
+place of `lax.scan`; each layer's body checkpointed under `cfg.remat`
+when gradients are on) -> norm -> tied or separate unembedding, and the
+next-token loss `loss_fn`.  Hybrid models run Mamba2 blocks and apply
+one *shared* attention + MLP block after every `attn_every`-th layer
+(Zamba2-style).  Parameters keep the
 reference's tree, so `repro_torch.convert` carries weights across both
 ways.  The moe family comes with a later slice.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..device import resolve
 from .config import ModelConfig
@@ -135,28 +140,80 @@ def _shared_attn_block(cfg: ModelConfig, h, sp, positions):
                    cfg.activation)
 
 
+# `dots_with_no_batch_dims_saveable`: the projections x @ W reach the
+# dispatcher as aten.mm once matmul folds the leading dims, the attention
+# and SSD einsums (which carry batch dims) as aten.bmm
+DOTS_SAVED = (torch.ops.aten.mm.default,)
+
+
+def dots_policy(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of `remat_policy="dots"`: save the
+    outputs of `DOTS_SAVED`, recompute everything else."""
+    if op in DOTS_SAVED:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(cfg: ModelConfig, body):
+    """`body` checkpointed as the reference's `_remat` does (`full`: keep
+    only the layer's inputs; `dots`: also the non-batch matmuls), when
+    `cfg.remat` and gradients are on; remat changes no value, so serving
+    and prefill run `body` as it is."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return body
+    kw = {}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, dots_policy)
+    return functools.partial(checkpoint, body, use_reentrant=False, **kw)
+
+
 def forward(params: dict, batch: dict, cfg: ModelConfig):
     """Full-sequence forward.  Returns (logits (B,S,V) f32, aux_loss,
     loss_mask)."""
     _check_family(cfg)
     h, positions, mask = _embed_inputs(params, batch, cfg)
     attn_mask = hybrid_attn_mask(cfg)
-    for i in range(cfg.num_layers):
-        lp = _layer_slice(params["layers"], i)
+
+    def body(h, lp, use_attn):
         if cfg.family == "dense":
             h = h + attention(lp["attn"],
                               rms_norm(lp["attn_norm"], h, cfg.norm_eps),
                               cfg, positions)
-            h = h + mlp(lp["mlp"], rms_norm(lp["mlp_norm"], h, cfg.norm_eps),
-                        cfg.activation)
-            continue
+            return h + mlp(lp["mlp"],
+                           rms_norm(lp["mlp_norm"], h, cfg.norm_eps),
+                           cfg.activation)
         h = h + mamba2_block(lp["mamba"], rms_norm(lp["norm"], h,
                                                    cfg.norm_eps), cfg)
-        if attn_mask[i]:
+        if use_attn:
             h = _shared_attn_block(cfg, h, params["shared_attn"], positions)
+        return h
+
+    body = _remat(cfg, body)
+    for i in range(cfg.num_layers):
+        h = body(h, _layer_slice(params["layers"], i), attn_mask[i])
     h = rms_norm(params["final_norm"], h, cfg.norm_eps)
     logits = _unembed(params, cfg, h).to(DTYPES[cfg.logit_dtype])
     return logits, 0.0, mask
+
+
+def loss_fn(params: dict, batch: dict, cfg: ModelConfig):
+    """Next-token cross entropy (+ the MoE aux term, 0 until MoE is
+    ported) over f32 log-probabilities, weighted by `mask & (labels >=
+    0)` (VLM patch positions are masked out).  Returns (loss, {"ce",
+    "aux", "tokens"})."""
+    logits, aux, mask = forward(params, batch, cfg)
+    labels = batch["labels"]
+    lw = mask & (labels >= 0)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    ll = torch.gather(logp, -1, labels.clamp(min=0).long()[..., None])[..., 0]
+    denom = torch.clamp(lw.sum(), min=1).to(torch.int32)
+    ce = -torch.sum(ll * lw) / denom
+    loss = ce + aux
+    return loss, {"ce": ce,
+                  "aux": torch.as_tensor(aux, dtype=torch.float32,
+                                         device=ce.device),
+                  "tokens": denom}
 
 
 def prefill(params: dict, batch: dict, cfg: ModelConfig, max_seq: int):

@@ -1,0 +1,42 @@
+"""Nested dicts of tensors as the reference's pytrees: its parameter,
+optimizer and train-state trees are dicts all the way down."""
+
+from __future__ import annotations
+
+import torch
+
+
+def tree_leaves(tree) -> list[torch.Tensor]:
+    """The leaves in `jax.tree.leaves` order: dict keys sorted."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    return [tree]
+
+
+def tree_map(fn, tree, *rest):
+    """`fn` over the leaves of `tree` and of the same-shaped `rest`."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def tree_unflatten(tree, leaves) -> dict:
+    """`tree`'s structure (and key order) with `leaves`, given in
+    `tree_leaves` order, in place of its leaves."""
+    it = iter(leaves)
+
+    def walk(node):
+        if isinstance(node, dict):
+            out = {k: walk(node[k]) for k in sorted(node)}
+            return {k: out[k] for k in node}
+        return next(it)
+    return walk(tree)
+
+
+def tree_unzip(tree, n: int) -> tuple:
+    """A tree whose leaves are n-tuples -> n trees."""
+    if isinstance(tree, dict):
+        parts = {k: tree_unzip(v, n) for k, v in tree.items()}
+        return tuple({k: p[i] for k, p in parts.items()} for i in range(n))
+    return tree

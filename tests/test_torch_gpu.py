@@ -2,6 +2,9 @@
 the model and engine through them.  Skips without a card; run there with
 `PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py`."""
 
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -14,6 +17,7 @@ from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models import (decode_step, forward, init_cache, init_params,
                                 prefill)
 from repro_torch.serve.engine import Request, ServeConfig, ServingEngine
+from repro_torch.train.step import loss_and_grads
 
 pytestmark = pytest.mark.gpu
 
@@ -374,3 +378,39 @@ def test_engine_tokens_equal_with_kernels_and_plain(cuda):
         assert int(eng.cache["pos"]) > 24         # past the cache end
         outs.append({r: q.output for r, q in eng.finished.items()})
     assert outs[0] == outs[1]
+
+
+def _chip_smoke():
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("arch", ["smollm-360m", "mamba2-2.7b"])
+def test_train_step_on_the_card_matches_the_cpu(cuda, arch):
+    """chip_smoke.py's phase 9(d) at the smoke configs: one f32 step on
+    the card against the CPU (microbatches 1 and 2, int8 compression):
+    loss 1e-5, grad_norm 1e-4, new params rtol = atol = 2e-5, the same
+    int8 round trip of the same grads; no kernel launches."""
+    da_ops.zero_launches()
+    fa_ops.zero_launches()
+    ssd_ops.zero_launches()
+    report = _chip_smoke().train_card_vs_cpu(smoke_config(arch), cuda, B=2,
+                                             S=64)
+    assert set(report) == {"microbatches 1", "microbatches 2",
+                           "grad_compression"}
+    assert da_ops.launches == fa_ops.launches == ssd_ops.launches == 0
+
+
+def test_kernels_refuse_a_gradient_on_the_card(cuda):
+    cfg = smoke_config("smollm-360m").scaled(dtype="bfloat16",
+                                             attn_impl="pallas")
+    params = init_params(cfg, seed=0, device=cuda)
+    tokens = torch.zeros((1, 16), dtype=torch.int32, device=cuda)
+    before = fa_ops.launches
+    with pytest.raises(RuntimeError, match="forward-only"):
+        loss_and_grads(params, {"tokens": tokens, "labels": tokens}, cfg)
+    assert fa_ops.launches == before
+

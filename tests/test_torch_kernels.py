@@ -8,6 +8,8 @@ import pytest
 import torch
 
 from repro.kernels.decode_attention.kernel import decode_attention_bhd
+from repro.kernels.decode_attention.ref import \
+    decode_attention_ref as jax_decode_attention_ref
 from repro.kernels.flash_attention.kernel import flash_attention_bhsd
 from repro.kernels.flash_attention.ref import \
     attention_ref as jax_attention_ref
@@ -234,6 +236,32 @@ def test_decode_split_edges_match_pallas_kernel(case, dtype):
     _close(port, ref, dtype)
     if length == 0:
         assert torch.equal(port, torch.zeros_like(port))
+
+
+@pytest.mark.parametrize("splits", [1, 3])
+@pytest.mark.parametrize("window", [0, 256])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_decode_past_an_unpadded_cache_end_matches_the_oracle(dtype, window,
+                                                             splits):
+    """length 700 over a 600-row cache (the engine's shared position past
+    max_seq): both plain versions take the live range min(length, T) and
+    match the reference's oracle (`repro/kernels/decode_attention/ref.py`).
+    The reference's Pallas kernel does not: it zero-pads T to a multiple of
+    `block_k` (512) and keeps every padded row below `length`, so those
+    rows enter its softmax with score 0.  On this test's f32 inputs
+    (interpret mode) it differs from the oracle by 0.0134 at window 0
+    (max |oracle| 0.139) and 0.0817 at window 256 (0.276); ROADMAP.md's
+    probe, another draw, gave 0.0134 and 0.0939.  The port follows the
+    oracle."""
+    B, H, Hkv, T, hd, length = 1, 2, 1, 600, 32, 700
+    (jq, jk, jv), (tq, tk, tv) = _inputs(
+        [(B, H, hd), (B, Hkv, T, hd), (B, Hkv, T, hd)], dtype, 0)
+    ref = jax_decode_attention_ref(jq, jk, jv, length, window=window)
+    len_t = torch.tensor(length, dtype=torch.int32)
+    _close(decode_attention_ref(tq, tk, tv, len_t, window=window), ref,
+           dtype)
+    _close(decode_attention_split(tq, tk, tv, len_t, window=window,
+                                  splits=splits), ref, dtype)
 
 
 def test_decode_split_rules():

@@ -1,7 +1,8 @@
 """The port's ssm (Mamba2) and hybrid (Zamba2) families against the JAX
 model on the same converted parameters and inputs (smoke configs, f32,
 CPU): forward, decode, the hybrid's rolling attention window, the serving
-engine, and the reference engine's SSM-cache fault reproduced."""
+engine, and the reference's SSM-cache and SSD-gradient faults
+reproduced."""
 
 import jax
 import jax.numpy as jnp
@@ -15,10 +16,12 @@ from repro.models import decode_step as j_decode_step
 from repro.models import forward as j_forward
 from repro.models import init_cache as j_init_cache
 from repro.models import init_params as j_init_params
+from repro.models.mamba2 import ssd_chunked as j_ssd_chunked
 from repro.serve import engine as jeng
 from repro_torch import models as tm
 from repro_torch.convert import params_from_numpy, params_to_numpy
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.models.mamba2 import ssd_chunked as t_ssd_chunked
 from repro_torch.serve import engine as teng
 
 ARCHS = ["mamba2-2.7b", "zamba2-7b"]
@@ -214,3 +217,39 @@ def test_admitted_request_inherits_the_slots_ssm_state():
     eng._admit()
     assert eng.slot_req[0].rid == 1
     assert eng.cache["ssm"]["state"][:, 0].abs().max() > 0   # not reset
+
+
+def test_ssd_gradient_is_nan_at_strong_decay_in_both_packages():
+    """The reference's fault, reproduced on purpose: `ssd_chunked` selects
+    `exp(seg)` below the diagonal, but above it exp(seg) is +inf at strong
+    decay (A = -16, dt = 0.1: seg up to 1.6 x 127), and the backward of
+    the select multiplies its zero cotangent by that inf.  The forward
+    is finite; the dt-gradient of the strongly decaying head is NaN at
+    all 128 positions (the other head's is finite), the x-gradient
+    finite.  Mamba2-2.7B's own init reaches this (A down to -16, dt up to
+    0.1, chunk 128), so neither package can train it at full width."""
+    rng = np.random.default_rng(0)
+    b, s, h, p, n = 1, 128, 2, 8, 16
+    x = rng.standard_normal((b, s, h, p)).astype(np.float32)
+    B = rng.standard_normal((b, s, 1, n)).astype(np.float32)
+    C = rng.standard_normal((b, s, 1, n)).astype(np.float32)
+    dt = np.full((b, s, h), 0.1, np.float32)
+    A = np.array([-16.0, -1.0], np.float32)
+    ct = rng.standard_normal((b, s, h, p)).astype(np.float32)
+
+    def jf(xx, dd):
+        y, _ = j_ssd_chunked(xx, dd, A, B, C, 128)
+        return jnp.sum(y * ct), y
+    (_, jy), (jgx, jgdt) = jax.value_and_grad(jf, argnums=(0, 1),
+                                              has_aux=True)(x, dt)
+    tx = torch.from_numpy(x).requires_grad_(True)
+    tdt = torch.from_numpy(dt).requires_grad_(True)
+    ty, _ = t_ssd_chunked(tx, tdt, torch.from_numpy(A), torch.from_numpy(B),
+                          torch.from_numpy(C), 128)
+    tgx, tgdt = torch.autograd.grad((ty * torch.from_numpy(ct)).sum(),
+                                    [tx, tdt])
+    for y, gx, gdt in ((np.asarray(jy), np.asarray(jgx), np.asarray(jgdt)),
+                       (ty.detach().numpy(), tgx.numpy(), tgdt.numpy())):
+        assert np.isfinite(y).all() and np.isfinite(gx).all()
+        assert np.isnan(gdt[..., 0]).sum() == s
+        assert np.isfinite(gdt[..., 1]).all()

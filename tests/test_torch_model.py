@@ -158,9 +158,9 @@ def test_unported_families_and_impls_raise():
         with pytest.raises(NotImplementedError, match="MoE"):
             tm.init_cache(smoke_config(arch), 1, 8, device="cpu")
     cfg, _, tp = _setup("smollm-360m")
-    with pytest.raises(NotImplementedError, match="xla_chunked"):
+    with pytest.raises(NotImplementedError, match="splash"):
         tm.forward(tp, {"tokens": torch.zeros(1, 4, dtype=torch.long)},
-                   cfg.scaled(attn_impl="xla_chunked"))
+                   cfg.scaled(attn_impl="splash"))
 
 
 def test_entry_points_default_to_the_card():
