@@ -42,15 +42,42 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      step 1's loss identical, grad_norm within 1e-3) and with Adafactor
      (3 steps, the reference's factored-stat shapes); then one f32 step
      of its widths cut to 2 layers on the card against the same step on
-     the CPU, for microbatches 1 and 2 and with int8 grad compression.
+     the CPU, for microbatches 1 and 2 and with int8 grad compression;
+ 10. the checkpoint store (the Paxos-replicated datastore on the host's
+     simulator, holding the card's tensors): (a) with storage node 2
+     crashed, commit the parameters phase 9(a) trained (SmolLM-360M at
+     full width: bf16 weights, f32 norm scales) and print bytes, chunks,
+     wall seconds, MB/s, sim.now and the host's RSS and max RSS, then
+     the share of repr in a 16 MB commit under cProfile; (b) restore
+     them by strong read into a tree from another seed on the card,
+     every leaf equal; (c) engine A (8 slots, max_seq 512, refresh every
+     8 batches, the store, end token id 0) serves phase 5's 16 requests
+     on another seed's weights, then, after sim.run_for(2.0), 16 more,
+     and must refresh to the commit through a timeline read; engine B,
+     with no store, runs the same requests with its params set to the
+     committed tensors at the same batch, and the tokens and KV caches of
+     A and B must be equal (the shared cache position makes order
+     matter); (d) a
+     zombie copy of the store, whose manifest version a newer commit
+     made stale, must be fenced by StaleTrainerError; (e) the reference
+     example's ft-demo trainer (4 layers, d 128, vocab 2048, f32, AdamW
+     lr 1e-3, seq 64 x batch 8) on the card: 10 steps, a commit, 5
+     steps; the whole train state restored by strong read into a state
+     from another seed and the same 5 steps, with losses and every leaf
+     equal, under torch.use_deterministic_algorithms
+     (CUBLAS_WORKSPACE_CONFIG is set before the first cuBLAS call);
+     without it, two resumes and five embedding gradients are compared
+     and reported.
 Phase 5 ends with a full-context SmolLM-360M decode step: bf16, 8 slots
 of a 2048-token cache filled with seeded random K/V, position 2000; 32
 steps timed, one profiled (device busy, idle share, decode_attention's
 share), the first step's logits against the eager path.
 Phases 4-5, 6 and 7 are the three serving main paths, phase 9 the
-training path.  The launch counters are zeroed just before each and read
-just after it; every kernel variant of a serving path must have launched
-there, and none on the training path (the kernels are forward-only, so
+training path, phase 10 the store path (commit, restore, serve with
+refresh, resume).  The launch counters are zeroed just before each and
+read just after it; every kernel variant of a serving path must have
+launched there, decode_attention on the store path's engine, and none on
+the training path (the kernels are forward-only, so
 training takes the eager attention path, as the reference's does).  The
 JSON line's `launches` is a kernel's sum over the paths (one ssd_scan
 call of either variant is three launches).  The last two lines are a
@@ -60,8 +87,13 @@ and {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
+import cProfile
 import gc
 import json
+import os
+import pstats
+import resource
 import subprocess
 import sys
 import time
@@ -73,6 +105,8 @@ import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch.checkpoint import (SpinnakerCheckpointStore,  # noqa: E402
+                                    StaleTrainerError, StoreConfig)
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.convert import (train_state_from_numpy,  # noqa: E402
                                  train_state_to_numpy)
@@ -87,13 +121,15 @@ from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref  # noqa: E402
 from repro_torch.models import (decode_step, forward, init_cache,  # noqa: E402
                                 init_params, prefill)
+from repro_torch.models.config import ModelConfig  # noqa: E402
 from repro_torch.serve.engine import (Request, ServeConfig,  # noqa: E402
                                       ServingEngine)
 from repro_torch.train.optim import OptimizerConfig  # noqa: E402
 from repro_torch.train.step import (TrainConfig,  # noqa: E402
                                     init_train_state, loss_and_grads,
                                     make_train_step)
-from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
+from repro_torch.tree import (tree_leaves, tree_leaves_with_path,  # noqa: E402
+                              tree_map)
 
 HBM_BYTES_PER_S = 3.35e12                 # H100 SXM data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12,     # dense tensor-core bf16
@@ -405,19 +441,29 @@ def make_requests(vocab, n=16, lo=32, hi=128, new=32, seed=0):
                     max_new_tokens=new) for i, m in enumerate(lengths)]
 
 
-def serve(cfg, params, scfg, requests, device):
-    eng = ServingEngine(cfg, params, scfg, device=device)
-    for r in requests:
-        eng.submit(r)
+def drain(eng, on_batch=None) -> list[float]:
+    """Step `eng` until its queue and slots are empty; returns each step's
+    host seconds (ending in a synchronise).  `on_batch(eng)` runs after
+    every step."""
     step_s = []
-    t0 = time.perf_counter()
     while eng.queue or any(r is not None for r in eng.slot_req):
         ts = time.perf_counter()
         eng.step_batch()                 # ends in a host copy of the argmax
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - ts)
+        if on_batch is not None:
+            on_batch(eng)
         if len(step_s) > 10_000:
             raise RuntimeError("serving did not drain")
+    return step_s
+
+
+def serve(cfg, params, scfg, requests, device):
+    eng = ServingEngine(cfg, params, scfg, device=device)
+    for r in requests:
+        eng.submit(r)
+    t0 = time.perf_counter()
+    step_s = drain(eng)
     return eng, time.perf_counter() - t0, step_s
 
 
@@ -907,7 +953,8 @@ def adafactor_shapes_ok(params, stats) -> int:
 def train_path(device):
     """Phase 9 (a)-(c): SmolLM-360M at full width, bf16, remat full, eager
     attention, AdamW at lr 3e-4, wd 0.1, clip 1.0, on 10 batches of the
-    deterministic mixture stream (4 x 2048 tokens)."""
+    deterministic mixture stream (4 x 2048 tokens).  Returns the metrics
+    and the parameters (a) trained."""
     cfg = get_config("smollm-360m").scaled(attn_impl="xla",
                                            remat_policy="full")
     opt = OptimizerConfig(lr=3e-4, weight_decay=0.1, grad_clip=1.0)
@@ -935,6 +982,7 @@ def train_path(device):
         raise AssertionError(f"loss did not fall: {losses}")
     wall_ms, busy_ms, kernels, ops = profile_call(
         lambda: make_train_step(cfg, tcfg)(state, batches[0]))
+    trained = state["params"]            # phase 10 commits them
     del state
     top = ", ".join(f"{kernel_name(k)} {ms:.3f} ms x{n}"
                     for k, ms, n in kernels[:6])
@@ -981,14 +1029,7 @@ def train_path(device):
         "reference's")
     del start, astate
     free()
-    return out
-
-
-def _leaf_paths(tree, prefix=""):
-    if isinstance(tree, dict):
-        return [p for k in sorted(tree)
-                for p in _leaf_paths(tree[k], f"{prefix}/{k}")]
-    return [prefix]
+    return out, trained
 
 
 def train_card_vs_cpu(cfg, device, B, S, seed=0, lr=1e-3) -> dict:
@@ -1032,9 +1073,8 @@ def train_card_vs_cpu(cfg, device, B, S, seed=0, lr=1e-3) -> dict:
         if abs(g_c - g_h) > TRAIN_GNORM_RTOL * abs(g_h):
             raise AssertionError(f"{name}: grad_norm card {g_c} cpu {g_h}")
         worst, amplified, flipped = 0.0, 0, 0
-        for path, pc, ph in zip(_leaf_paths(new_h["params"]),
-                                tree_leaves(new_c["params"]),
-                                tree_leaves(new_h["params"])):
+        for (path, ph), pc in zip(tree_leaves_with_path(new_h["params"]),
+                                  tree_leaves(new_c["params"])):
             pc = pc.cpu()
             err = (pc - ph).abs()
             bad = err > TRAIN_PARAM_TOL + TRAIN_PARAM_TOL * ph.abs()
@@ -1090,8 +1130,7 @@ def grads_card_vs_cpu(cfg, card, host, batch, near):
     _, _, gc = loss_and_grads(card["params"],
                               {k: v.to(device) for k, v in hb.items()}, cfg)
     near_zero, flips, n_near, n_flips, n = {}, {}, 0, 0, 0
-    for path, g_h, g_c in zip(_leaf_paths(gh), tree_leaves(gh),
-                              tree_leaves(gc)):
+    for (path, g_h), g_c in zip(tree_leaves_with_path(gh), tree_leaves(gc)):
         g_cc = g_c.cpu()
         scale = float(g_h.abs().max())
         if float((g_cc - g_h).abs().max()) > 2e-4 * scale:
@@ -1115,12 +1154,287 @@ def grads_card_vs_cpu(cfg, card, host, batch, near):
         f"card's own grads give {n_flips} different int8 codes")
     return near_zero, flips
 
+# ---------------------------------------------------------------------------
+# phase 10: commit, restore, serve with refresh; trainer crash and resume
+# ---------------------------------------------------------------------------
+
+
+def max_rss() -> int:
+    """The host process's peak resident set so far, in bytes (Linux
+    reports KiB)."""
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+def rss() -> int:
+    """The host process's resident set now, in bytes (Linux)."""
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * resource.getpagesize()
+
+
+def tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def trees_equal(a, b) -> bool:
+    """Same leaf names, dtypes and values (`torch.equal`)."""
+    la, lb = tree_leaves_with_path(a), tree_leaves_with_path(b)
+    return [n for n, _ in la] == [n for n, _ in lb] and all(
+        x.dtype == y.dtype and torch.equal(x, y)
+        for (_, x), (_, y) in zip(la, lb))
+
+
+def repr_share(leaf) -> tuple[float, float]:
+    """One leaf committed to a fresh store under cProfile: the share of
+    the profiled host time spent in `repr` (the journal's `record_digest`
+    renders every log record, chunk bytes included, on every replica),
+    and that time in seconds.  cProfile slows Python calls, not repr."""
+    store = SpinnakerCheckpointStore(StoreConfig())
+    prof = cProfile.Profile()
+    prof.runcall(store.save, 1, {"leaf": leaf})
+    stats = pstats.Stats(prof)
+    in_repr = sum(v[2] for k, v in stats.stats.items()
+                  if k[2] == "<built-in method builtins.repr>")
+    return in_repr / stats.total_tt, stats.total_tt
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def serve_two_waves(eng, between, on_batch) -> tuple[list, float, list]:
+    """Phase 5's 16 requests, drained; `between()`; 16 more from another
+    seed, drained.  Returns (requests, wall seconds, per-step seconds)."""
+    first = make_requests(eng.cfg.vocab_size)
+    second = make_requests(eng.cfg.vocab_size, seed=1)
+    for r in second:
+        r.rid += len(first)
+    step_s = []
+    t0 = time.perf_counter()
+    for i, wave in enumerate((first, second)):
+        if i:
+            between()
+        for r in wave:
+            eng.submit(r)
+        step_s += drain(eng, on_batch)
+    return first + second, time.perf_counter() - t0, step_s
+
+
+def commit_restore_serve(device, store, params) -> dict:
+    """Phase 10 (a)-(d) over SmolLM-360M's full-width parameters, the ones
+    phase 9(a) trained (bf16 weights, f32 norm scales)."""
+    cfg = get_config("smollm-360m").scaled(attn_impl="pallas")
+    nbytes = tree_bytes(params)
+
+    # (a) commit at full width with storage node 2 down
+    store.crash_storage_node(2)
+    store.sim.run_for(3.0)
+    rss_before, max_rss_before = rss(), max_rss()
+    t0 = time.perf_counter()
+    manifest = store.save(10, params)
+    commit_s = time.perf_counter() - t0
+    if store.latest_step() != 10:
+        raise AssertionError("the commit at step 10 is not the manifest's")
+    chunks = sum(e["nchunks"] for e in manifest["index"])
+    out = dict(bytes=nbytes, chunks=chunks, commit_s=commit_s,
+               commit_mb_per_s=nbytes / commit_s / 1e6,
+               sim_now_after_commit=store.sim.now,
+               rss_before_commit=rss_before, rss_after_commit=rss(),
+               max_rss_before_commit=max_rss_before,
+               max_rss_after_commit=max_rss())
+    log("store", f"(a) smollm-360m full width: {len(manifest['index'])} "
+        f"leaves, {nbytes} B in {chunks} chunks of {store.cfg.chunk_bytes} B "
+        f"committed with storage node 2 down in {commit_s:.3f} s wall, "
+        f"{out['commit_mb_per_s']:.3f} MB/s; sim.now {store.sim.now:.6f} s; "
+        f"host RSS {rss_before} B before the commit, "
+        f"{out['rss_after_commit']} B after (max RSS {max_rss_before} B "
+        f"before, {out['max_rss_after_commit']} B after)")
+    leaf = params["embed"][:8192]
+    share, total = repr_share(leaf)
+    out.update(repr_share=share)
+    log("store", f"(a) where a commit's host time goes: "
+        f"{leaf.numel() * leaf.element_size()} B of embed committed under "
+        f"cProfile in {total:.3f} s, {share:.3f} of it in repr")
+
+    # (b) strong restore into a fresh tree on the card from another seed
+    like = init_params(cfg, seed=1, device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step, restored = store.restore_tree(like)
+    torch.cuda.synchronize()
+    out["restore_s"] = time.perf_counter() - t0
+    del like
+    if step != 10 or not trees_equal(restored, params) or any(
+            t.device.type != device.type for t in tree_leaves(restored)):
+        raise AssertionError("the strong restore differs from the commit")
+    del restored
+    log("store", f"(b) strong restore of step {step} into a seed-1 tree on "
+        f"the card: {out['restore_s']:.3f} s wall, "
+        f"{nbytes / out['restore_s'] / 1e6:.3f} MB/s; every leaf equal to "
+        "the committed one, dtypes the same")
+
+    # (c) engine A refreshes from the store with timeline reads while
+    # serving; engine B, with no store, swaps in the committed tensors at
+    # the same batch
+    start = init_params(cfg, seed=2, device=device)
+    # ten steps of training make the stream's EOS (id 1) every prompt's
+    # greedy first token; the end token here is id 0, which the stream
+    # never holds, so each request decodes its 32 tokens
+    scfg = ServeConfig(slots=8, max_seq=512, refresh_every_batches=8,
+                       eos_id=0)
+    eng_a = ServingEngine(cfg, start, scfg, store=store, device=device)
+    refreshed_at = []
+
+    def watch(eng):
+        if eng.weights_step == 10 and not refreshed_at:
+            refreshed_at.append(eng.batches_run)
+    torch.cuda.reset_peak_memory_stats()
+    reqs_a, wall, step_s = serve_two_waves(
+        eng_a, lambda: store.sim.run_for(2.0), watch)
+    if not refreshed_at:
+        raise AssertionError(f"engine A did not refresh to step 10 "
+                             f"(weights_step {eng_a.weights_step})")
+    at = refreshed_at[0]
+    report_serving("smollm-360m refreshed from the store", eng_a, reqs_a,
+                   wall, step_s, nbytes, cfg.vocab_size)
+    if not trees_equal(eng_a.params, params):
+        raise AssertionError("engine A's refreshed params differ from the "
+                             "commit")
+
+    def swap(eng):
+        if eng.batches_run == at:
+            eng.params = params
+    eng_b = ServingEngine(cfg, start, scfg, device=device)
+    reqs_b, _, step_b = serve_two_waves(eng_b, lambda: None, swap)
+    toks_a = {r.rid: r.output for r in reqs_a}
+    toks_b = {r.rid: r.output for r in reqs_b}
+    if toks_a != toks_b:
+        bad = [rid for rid in toks_a if toks_a[rid] != toks_b[rid]]
+        raise AssertionError(f"engine A's tokens differ from engine B's for "
+                             f"requests {bad}")
+    # the trained weights give few distinct tokens; the caches hold every
+    # step's K/V, so equal caches show equal computation throughout
+    if not trees_equal(eng_a.cache, eng_b.cache):
+        raise AssertionError("engine A's KV cache differs from engine B's")
+    out.update(refresh_batch=at, refresh_step_ms=1e3 * step_s[at - 1],
+               serve_p50_ms=1e3 * float(np.median(step_s)),
+               no_store_p50_ms=1e3 * float(np.median(step_b)))
+    distinct = len({t for o in toks_a.values() for t in o})
+    log("store", f"(c) engine A refreshed to step 10 through a timeline "
+        f"read at batch {at} (that step {out['refresh_step_ms']:.3f} ms); "
+        f"its {len(toks_a)} requests' tokens ({distinct} distinct ids) and "
+        f"its KV cache equal engine B's, whose params were swapped to the "
+        f"committed tensors at batch {at}; p50 step A {out['serve_p50_ms']:.3f} ms, "
+        f"B {out['no_store_p50_ms']:.3f} ms")
+    del eng_a, eng_b, start
+
+    # (d) a zombie trainer with a stale manifest version is fenced out
+    zombie = object.__new__(SpinnakerCheckpointStore)
+    zombie.__dict__.update(store.__dict__)    # its view: step 10's version
+    tiny = {"final_norm": params["final_norm"]}
+    store.save(11, tiny)                      # the live trainer moves on
+    try:
+        zombie.save(12, tiny)
+    except StaleTrainerError as e:
+        fenced = str(e)
+    else:
+        raise AssertionError("the zombie's commit was not fenced")
+    if store.latest_step() != 11:
+        raise AssertionError("the zombie moved the manifest")
+    log("store", f"(d) zombie (manifest v{zombie._manifest_version}) "
+        f"fenced: {fenced}; the manifest stays at step 11")
+    return out
+
+
+FT_DEMO = ModelConfig(name="ft-demo", family="dense", num_layers=4,
+                      d_model=128, num_heads=4, num_kv_heads=2, d_ff=512,
+                      vocab_size=2048, dtype="float32", remat=False)
+
+
+def embedding_grad_results(device, runs=5) -> int:
+    """Distinct results of the embedding lookup's gradient (the backward
+    of `embed[tokens]`: an accumulating index_put_ over repeated ids) at
+    (e)'s shapes over `runs` identical calls, under the current setting
+    of torch.use_deterministic_algorithms."""
+    gen = torch.Generator(device=device).manual_seed(0)
+    embed = torch.randn(FT_DEMO.vocab_size, FT_DEMO.d_model, device=device,
+                        generator=gen)
+    tokens = torch.randint(0, FT_DEMO.vocab_size, (8, 64), device=device,
+                           generator=gen)
+    up = torch.randn(8, 64, FT_DEMO.d_model, device=device, generator=gen)
+    seen = set()
+    for _ in range(runs):
+        e = embed.detach().requires_grad_(True)
+        with torch.enable_grad():
+            g, = torch.autograd.grad(e[tokens], e, up)
+        seen.add(g.cpu().numpy().tobytes())
+    return len(seen)
+
+
+def trainer_crash_resume(device) -> dict:
+    """Phase 10(e): the reference example's ft-demo run on the card, 10
+    steps, a commit to a store of its own (a store's manifest fence
+    belongs to one run), 5 steps; the whole train state restored by strong
+    read into a state from another seed, and the same 5 steps: losses
+    and every leaf equal."""
+    store = SpinnakerCheckpointStore(StoreConfig())
+    tcfg = TrainConfig(optimizer=OptimizerConfig(lr=1e-3))
+    stream = TokenStream(DataConfig(vocab_size=FT_DEMO.vocab_size,
+                                    seq_len=64, global_batch=8, seed=0), 0)
+    step_fn = make_train_step(FT_DEMO, tcfg)
+
+    def run(state, start, n):
+        losses = []
+        for s in range(start, start + n):
+            state, m = step_fn(state, stream.batch_at(s))
+            losses.append(float(m["loss"]))
+        return state, losses
+
+    def resume():
+        like = init_train_state(FT_DEMO, tcfg, seed=99, device=device)
+        step, restored = store.restore_tree(like)
+        return run(restored, step, 5)
+
+    with deterministic_algorithms():
+        state, first = run(init_train_state(FT_DEMO, tcfg, seed=0,
+                                            device=device), 0, 10)
+        store.save(10, state)
+        ref_state, ref_losses = run(state, 10, 5)
+        del state
+        resumed, losses = resume()
+        det_grads = embedding_grad_results(device)
+    if losses != ref_losses or not trees_equal(resumed, ref_state):
+        raise AssertionError(f"resumed losses {losses} != uninterrupted "
+                             f"{ref_losses}, or the states differ")
+    # without deterministic algorithms (other kernels for some ops): two
+    # resumes against each other, reported and not held
+    (s1, l1), (s2, l2) = resume(), resume()
+    out = dict(losses=first + losses, state_bytes=tree_bytes(ref_state),
+               free_resumes_equal=l1 == l2 and trees_equal(s1, s2),
+               embedding_grad_results=embedding_grad_results(device),
+               embedding_grad_results_deterministic=det_grads)
+    log("store", f"(e) ft-demo ({out['state_bytes']} B of train state) on "
+        f"the card: 10 steps, commit, 5 steps; restored by strong read into "
+        f"a seed-99 state, the same 5 steps give equal losses {losses} and "
+        f"an equal state (deterministic algorithms on).  Without them: two "
+        f"resumes equal each other: {out['free_resumes_equal']}; the "
+        f"embedding gradient gives {out['embedding_grad_results']} distinct "
+        f"results in 5 calls ({det_grads} with them)")
+    return out
+
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available", file=sys.stderr)
         return 1
     t_start = time.perf_counter()
+    # cuBLAS reads this at its first call; phase 10(e) needs it to run
+    # under deterministic algorithms
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     device = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1204,13 +1518,25 @@ def main() -> int:
     # -- phase 9: training, which launches no kernel -------------------------
     t0 = time.perf_counter()
     zero_launches()
-    train = train_path(device)
+    train, trained = train_path(device)
     train["card_vs_cpu"] = train_card_vs_cpu(
         get_config("smollm-360m").scaled(num_layers=2), device, B=2, S=256)
     paths["train"] = read_launches("train", ())
     if any(paths["train"].values()):
         raise AssertionError("a kernel was launched on the training path")
     log("train", f"phase 9 took {time.perf_counter() - t0:.1f} s: {train}")
+    free()
+
+    # -- phase 10: the checkpoint store, then serving with refresh ----------
+    t0 = time.perf_counter()
+    zero_launches()
+    store = SpinnakerCheckpointStore(StoreConfig())
+    ckpt = commit_restore_serve(device, store, trained)
+    del trained
+    free()
+    ckpt["resume"] = trainer_crash_resume(device)
+    paths["store"] = read_launches("store", ("decode_attention.split",))
+    log("store", f"phase 10 took {time.perf_counter() - t0:.1f} s: {ckpt}")
     free()
     launches = {k: sum(p[k] for p in paths.values())
                 for k in paths["smollm"]}

@@ -5,10 +5,10 @@
         --device cpu
 
 Trains a llama-family model on the deterministic mixture pipeline with
-AdamW, the presets and flags of `examples/train.py` without its
-checkpoint store (the port's store comes with a later slice).  Runs on
-the card unless `--device cpu` is given.  Loss curve and throughput are
-written to results/train_<preset>.json.
+AdamW, the presets and flags of `examples/train.py`: every `--ckpt-every`
+steps (0: never) the train state is committed to the Paxos-replicated
+checkpoint store.  Runs on the card unless `--device cpu` is given.
+Loss curve and throughput are written to results/train_<preset>.json.
 """
 
 import argparse
@@ -21,6 +21,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "src"))
 
 import torch  # noqa: E402
 
+from repro_torch.checkpoint import (SpinnakerCheckpointStore,  # noqa: E402
+                                    StoreConfig)
 from repro_torch.data.pipeline import DataConfig, TokenStream  # noqa: E402
 from repro_torch.models.config import ModelConfig  # noqa: E402
 from repro_torch.train.optim import OptimizerConfig  # noqa: E402
@@ -51,6 +53,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--preset", default="25m", choices=PRESETS)
     ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
@@ -67,6 +70,7 @@ def main():
                       global_batch=p["batch"], seed=0)
     stream = TokenStream(dcfg, 0)
     step_fn = make_train_step(cfg, tcfg)
+    store = SpinnakerCheckpointStore(StoreConfig(chunk_bytes=4 << 20))
 
     losses = []
     t0 = time.time()
@@ -81,6 +85,10 @@ def main():
             print(f"step {s:4d}  loss {loss:.4f}  "
                   f"grad_norm {float(metrics['grad_norm']):.3f}  "
                   f"{tokens_done/max(dt,1e-9):.0f} tok/s", flush=True)
+        if args.ckpt_every and (s + 1) % args.ckpt_every == 0:
+            store.save(s + 1, state)
+            print(f"  checkpoint @ step {s+1} committed to replicated "
+                  f"store (quorum + manifest fence)", flush=True)
 
     if not losses[-1] < losses[0]:
         raise SystemExit("loss did not decrease")

@@ -1,9 +1,8 @@
-"""Checkpoint interface of the port.  The Paxos-replicated store itself
-(`repro/checkpoint/store.py` and the datastore under it) is copied in with
-a later slice; until then the serving engine takes any object with the
-store's `latest_step` / `restore` methods."""
+"""The Paxos-replicated checkpoint store (`store.py`, the reference's
+store with its pytree half over torch tensors)."""
 
+from .store import (CheckpointError, SpinnakerCheckpointStore,
+                    StaleTrainerError, StoreConfig)
 
-class CheckpointError(Exception):
-    """A checkpoint read or write that could not complete (the counterpart
-    of `repro.checkpoint.store.CheckpointError`)."""
+__all__ = ["CheckpointError", "SpinnakerCheckpointStore",
+           "StaleTrainerError", "StoreConfig"]

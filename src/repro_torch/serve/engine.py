@@ -22,6 +22,7 @@ from ..convert import to_tensor
 from ..device import resolve
 from ..models import decode_step, init_cache
 from ..models.config import ModelConfig
+from ..tree import tree_leaves_with_path, tree_unflatten
 
 
 @dataclass
@@ -145,13 +146,16 @@ class ServingEngine:
 
 def _unflatten_like(tree, flat: dict):
     """`tree` with each leaf named in `flat` ("/"-joined dict keys, the
-    checkpoint store's names) replaced by that array, cast to the leaf's
-    dtype and device; leaves `flat` lacks are kept."""
-    def walk(node, name):
-        if isinstance(node, dict):
-            return {k: walk(v, f"{name}/{k}" if name else str(k))
-                    for k, v in node.items()}
+    checkpoint store's names) replaced by that tensor (as the port's store
+    restores it) or numpy array, cast to the leaf's dtype and device;
+    leaves `flat` lacks are kept."""
+    leaves = []
+    for name, node in tree_leaves_with_path(tree):
         arr = flat.get(name)
-        return node if arr is None else to_tensor(arr, node.device,
-                                                  node.dtype)
-    return walk(tree, "")
+        if arr is None:
+            leaves.append(node)
+        elif isinstance(arr, torch.Tensor):
+            leaves.append(arr.to(device=node.device, dtype=node.dtype))
+        else:
+            leaves.append(to_tensor(arr, node.device, node.dtype))
+    return tree_unflatten(tree, leaves)

@@ -6,11 +6,19 @@ from __future__ import annotations
 import torch
 
 
+def tree_leaves_with_path(tree, prefix: str = "") -> list[tuple]:
+    """(name, leaf) pairs in `jax.tree_util.tree_flatten_with_path` order:
+    dict keys sorted, a leaf's name its keys joined by "/" (the checkpoint
+    store's names, e.g. "opt/m/layers/attn/wq")."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves_with_path(
+            tree[k], f"{prefix}/{k}" if prefix else str(k))]
+    return [(prefix, tree)]
+
+
 def tree_leaves(tree) -> list[torch.Tensor]:
     """The leaves in `jax.tree.leaves` order: dict keys sorted."""
-    if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
-    return [tree]
+    return [leaf for _, leaf in tree_leaves_with_path(tree)]
 
 
 def tree_map(fn, tree, *rest):
