@@ -67,17 +67,42 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      equal, under torch.use_deterministic_algorithms
      (CUBLAS_WORKSPACE_CONFIG is set before the first cuBLAS call);
      without it, two resumes and five embedding gradients are compared
-     and reported.
+     and reported;
+ 11. the moe family and int8 weights (Phi-3.5-MoE, Kimi-K2): (a)
+     Phi-3.5-MoE at full width cut to 2 layers, f32, weights drawn with
+     numpy from a seed and carried over by params_from_numpy: a B=2, S=64
+     forward through flash fma against the eager path and the CPU's
+     forward on the same weights (2e-4; routes that differ between card
+     and CPU counted), then 16 decode steps through the split kernel
+     against the eager decode (2e-4); (b) Phi-3.5-MoE at full width and
+     full depth with int8 weights (`init_quantized_params`, one layer at
+     a time) and bf16 activations: its weight bytes against bf16's,
+     phase 5's 16 requests served (8 slots, max_seq 512), one step from
+     the served cache against the eager path (0.1 of the largest logit),
+     then the int8 wk/wv codes and scales and the f32 router of all 32
+     layers (new draws) committed to the checkpoint store and taken in
+     by a timeline refresh: bit-equal, and the tokens and caches of a
+     directly swapped engine; (c) its bf16 prefill of B=2 x 2048 tokens
+     through flash wgmma: prompt tokens/s, against the eager path, and a
+     profile split into dequantisation, expert GEMMs, dispatch and
+     attention; (d) Kimi-K2 at full width cut to 1 layer, dense bf16: a
+     B=1, S=256 forward through flash wgmma and 8 decode steps at B=8
+     through the split kernel, each against the eager path.
+Phase 3 also checks, and phase 8 times, phase 11's attention shapes:
+Phi-3.5-MoE's 32/8 heads at hd 128 (bf16 decode over 8 x 512 cached
+tokens, the bf16 2048-token prefill, and the f32 shapes of 11(a)) and
+Kimi-K2's 64/8 heads at hd 128 in bf16.
 Phase 5 ends with a full-context SmolLM-360M decode step: bf16, 8 slots
 of a 2048-token cache filled with seeded random K/V, position 2000; 32
 steps timed, one profiled (device busy, idle share, decode_attention's
 share), the first step's logits against the eager path.
 Phases 4-5, 6 and 7 are the three serving main paths, phase 9 the
 training path, phase 10 the store path (commit, restore, serve with
-refresh, resume).  The launch counters are zeroed just before each and
-read just after it; every kernel variant of a serving path must have
-launched there, decode_attention on the store path's engine, and none on
-the training path (the kernels are forward-only, so
+refresh, resume), phase 11 the moe path.  The launch counters are zeroed
+just before each and read just after it; every kernel variant of a
+serving path must have launched there, decode_attention on the store
+path's engine, decode and both flash variants on the moe path, and none
+on the training path (the kernels are forward-only, so
 training takes the eager attention path, as the reference's does).  The
 JSON line's `launches` is a kernel's sum over the paths (one ssd_scan
 call of either variant is three launches).  The last two lines are a
@@ -108,7 +133,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch.checkpoint import (SpinnakerCheckpointStore,  # noqa: E402
                                     StaleTrainerError, StoreConfig)
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.convert import (train_state_from_numpy,  # noqa: E402
+from repro_torch.convert import (params_from_numpy,  # noqa: E402
+                                 train_state_from_numpy,
                                  train_state_to_numpy)
 from repro_torch.data.pipeline import DataConfig, TokenStream  # noqa: E402
 from repro_torch.dist.compression import quantize_codes  # noqa: E402
@@ -121,7 +147,13 @@ from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref  # noqa: E402
 from repro_torch.models import (decode_step, forward, init_cache,  # noqa: E402
                                 init_params, prefill)
+from repro_torch.models import layers as layers_mod  # noqa: E402
+from repro_torch.models import model as model_mod  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.config import ModelConfig  # noqa: E402
+from repro_torch.models.layers import dense_init  # noqa: E402
+from repro_torch.models.model import init_quantized_params  # noqa: E402
+from repro_torch.models.quant import is_quantized, quantize_weight  # noqa
 from repro_torch.serve.engine import (Request, ServeConfig,  # noqa: E402
                                       ServingEngine)
 from repro_torch.train.optim import OptimizerConfig  # noqa: E402
@@ -167,6 +199,10 @@ DECODE_CASES = [
     (33, 32, 32, 128, 112, 100, 0), (2, 96, 8, 1200, 128, 1150, 0),
     (2, 8, 2, 1100, 256, 1090, 0),
     (8, 56, 8, 16384, 128, 16384, 0),          # DeepSeek-Coder-33B, 16K
+    # phase 11: Phi-3.5-MoE serving (8 x 512, mid length) and 11(a)'s f32
+    # decode (B=2, T=16, lengths 1..16); Kimi-K2's 64/8 heads (11(d))
+    (8, 32, 8, 512, 128, 256, 0), (2, 32, 8, 16, 128, 8, 0),
+    (8, 64, 8, 16, 128, 8, 0),
 ]
 DEEPSEEK_16K = (8, 56, 8, 16384, 128, 16384, 0)
 # the full-context decode step's attention: 8 slots x 2048, length 2001
@@ -189,7 +225,13 @@ FLASH_CASES = [
     (1, 32, 32, 512, 512, 112, True, 128),
     (1, 56, 8, 2048, 2048, 128, True, 0),       # DeepSeek-Coder-33B's heads
     (1, 4, 2, 130, 130, 128, True, 40), (1, 2, 2, 48, 16, 64, False, 8),
+    # phase 11: Phi-3.5-MoE's prefill (11(c)) and 11(a)'s f32 forward;
+    # Kimi-K2's forward (11(d))
+    (2, 32, 8, 2048, 2048, 128, True, 0), (2, 32, 8, 64, 64, 128, True, 0),
+    (1, 64, 8, 256, 256, 128, True, 0),
 ]
+PHI_DECODE, PHI_DECODE_F32, KIMI_DECODE = DECODE_CASES[-3:]
+PHI_FLASH, PHI_FLASH_F32, KIMI_FLASH = FLASH_CASES[-3:]
 SMOLLM_FLASH = (2, 15, 5, 2048, 2048, 64, True, 0)
 # the eager path rounds scores to bf16 before its softmax (up to ~2 % per
 # probability at |s| ~ 8) where the kernel keeps them f32; 32 layers
@@ -468,9 +510,9 @@ def serve(cfg, params, scfg, requests, device):
 
 
 def report_serving(name, eng, requests, wall, step_s, weight_bytes, vocab,
-                   new=32):
+                   new=32, what="full width bf16") -> dict:
     """Check that every request finished with 1..new valid tokens, and
-    print the serving metrics."""
+    print and return the serving metrics."""
     outs = [eng.finished[r.rid].output for r in requests
             if r.rid in eng.finished]
     if len(outs) != len(requests):
@@ -480,7 +522,7 @@ def report_serving(name, eng, requests, wall, step_s, weight_bytes, vocab,
             raise AssertionError(f"bad output {o}")
     generated = sum(len(o) for o in outs)
     steps, slots = len(step_s), eng.scfg.slots
-    log("serve", f"{name} full width bf16 ({weight_bytes} B of weights), "
+    log("serve", f"{name} {what} ({weight_bytes} B of weights), "
         f"{slots} slots, max_seq {eng.scfg.max_seq}: {len(outs)}/"
         f"{len(requests)} requests finished, {generated} tokens generated "
         f"in {steps} steps, {wall:.3f} s")
@@ -490,6 +532,12 @@ def report_serving(name, eng, requests, wall, step_s, weight_bytes, vocab,
         f"{1e3 * float(np.percentile(step_s, 99)):.3f} ms, shared pos "
         f"{int(eng.cache['pos'])}, max_memory_allocated "
         f"{torch.cuda.max_memory_allocated()} B")
+    return dict(finished=len(outs), submitted=len(requests),
+                generated=generated, steps=steps,
+                tokens_per_s=generated / wall,
+                p50_ms=1e3 * float(np.median(step_s)),
+                p99_ms=1e3 * float(np.percentile(step_s, 99)),
+                max_memory_allocated=torch.cuda.max_memory_allocated())
 
 
 def engines_agree(cfg32, params32, device):
@@ -1206,11 +1254,13 @@ def deterministic_algorithms():
         torch.use_deterministic_algorithms(False)
 
 
-def serve_two_waves(eng, between, on_batch) -> tuple[list, float, list]:
-    """Phase 5's 16 requests, drained; `between()`; 16 more from another
-    seed, drained.  Returns (requests, wall seconds, per-step seconds)."""
-    first = make_requests(eng.cfg.vocab_size)
-    second = make_requests(eng.cfg.vocab_size, seed=1)
+def serve_two_waves(eng, between, on_batch,
+                    **req_kw) -> tuple[list, float, list]:
+    """Phase 5's 16 requests (or `make_requests(**req_kw)`), drained;
+    `between()`; as many more from another seed, drained.  Returns
+    (requests, wall seconds, per-step seconds)."""
+    first = make_requests(eng.cfg.vocab_size, **req_kw)
+    second = make_requests(eng.cfg.vocab_size, **{**req_kw, "seed": 1})
     for r in second:
         r.rid += len(first)
     step_s = []
@@ -1427,6 +1477,510 @@ def trainer_crash_resume(device) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the moe family and int8 weights
+# ---------------------------------------------------------------------------
+
+PHI = "phi3.5-moe-42b-a6.6b"
+KIMI = "kimi-k2-1t-a32b"
+MOE_TOL = 2e-4      # the reference's whole-model tolerance with attention
+# numpy draws, in parallel threads: each block has its own stream
+DRAW_BLOCK = 1 << 26
+
+
+def numpy_moe_params(cfg: ModelConfig, seed: int) -> dict:
+    """The moe family's f32 parameter tree at `cfg`'s widths, drawn with
+    numpy from `seed`: normal with std 1/sqrt(fan_in) (embeddings 0.02),
+    norm scales 1.  Every block of DRAW_BLOCK values has its own stream
+    (`SeedSequence.spawn`), so the values do not depend on the threads."""
+    from concurrent.futures import ThreadPoolExecutor
+    D, L, V = cfg.d_model, cfg.num_layers, cfg.vocab_size
+    HD, KV = cfg.num_heads * cfg.resolved_head_dim, \
+        cfg.num_kv_heads * cfg.resolved_head_dim
+    E, Fd = cfg.num_experts, cfg.moe_d_ff
+    drawn = {  # name: (shape, std)
+        "embed": ((V, D), 0.02), "unembed": ((D, V), 0.02),
+        "layers/attn/wq": ((L, D, HD), D ** -0.5),
+        "layers/attn/wk": ((L, D, KV), D ** -0.5),
+        "layers/attn/wv": ((L, D, KV), D ** -0.5),
+        "layers/attn/wo": ((L, HD, D), HD ** -0.5),
+        "layers/moe/router": ((L, D, E), D ** -0.5),
+        "layers/moe/w_gate": ((L, E, D, Fd), D ** -0.5),
+        "layers/moe/w_up": ((L, E, D, Fd), D ** -0.5),
+        "layers/moe/w_down": ((L, E, Fd, D), Fd ** -0.5)}
+    flat = {"final_norm/scale": np.ones(D, np.float32),
+            "layers/attn_norm/scale": np.ones((L, D), np.float32),
+            "layers/mlp_norm/scale": np.ones((L, D), np.float32)}
+    tasks = []
+    for name, (shape, std) in drawn.items():
+        flat[name] = np.empty(shape, np.float32)
+        view = flat[name].reshape(-1)
+        for lo in range(0, view.size, DRAW_BLOCK):
+            tasks.append((view[lo:lo + DRAW_BLOCK], np.float32(std)))
+    seeds = np.random.SeedSequence(seed).spawn(len(tasks))
+
+    def draw(i):
+        out, std = tasks[i]
+        np.random.default_rng(seeds[i]).standard_normal(out=out,
+                                                        dtype=np.float32)
+        out *= std
+    with ThreadPoolExecutor(os.cpu_count() or 1) as ex:
+        list(ex.map(draw, range(len(tasks))))
+    tree: dict = {}
+    for name, arr in flat.items():
+        *path, leaf = name.split("/")
+        node = tree
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = arr
+    return tree
+
+
+@contextlib.contextmanager
+def recorded_routes():
+    """Each `moe._route` call's expert ids (T, K) and, on the host, its top
+    K+1 probabilities, in call (layer) order."""
+    route, calls = moe_mod._route, []
+
+    def spy(params, xf, cfg):
+        out = route(params, xf, cfg)
+        probs = torch.softmax(xf.float() @ params["router"].float(), -1)
+        top = torch.sort(probs, dim=-1, descending=True,
+                         stable=True).values
+        calls.append((out[1], top[:, :cfg.experts_per_token + 1].cpu()))
+        return out
+    moe_mod._route = spy
+    try:
+        yield calls
+    finally:
+        moe_mod._route = route
+
+
+@contextlib.contextmanager
+def pinned_routes(recorded):
+    """`moe._route` made to take, call by call, the expert ids that
+    `recorded_routes` recorded (gates: its own probabilities at those
+    ids, renormalised), so that two runs whose router inputs differ by
+    rounding dispatch the same tokens to the same experts and differ
+    only continuously.  Yields the list of each call's count of tokens
+    whose own route differed from the recorded one."""
+    route, flips = moe_mod._route, []
+
+    def pinned(params, xf, cfg):
+        _, ids, aux = route(params, xf, cfg)
+        want = recorded[len(flips)][0]
+        flips.append(int((ids != want).any(-1).sum()))
+        probs = torch.softmax(xf.float() @ params["router"].float(), -1)
+        gate = probs.gather(1, want)
+        return gate / gate.sum(-1, keepdim=True), want, aux
+    moe_mod._route = pinned
+    try:
+        yield flips
+    finally:
+        moe_mod._route = route
+
+
+def kernel_vs_eager(fn, cfg) -> tuple:
+    """`fn(cfg)` through the kernels, then on the eager path with the
+    kernel run's routes pinned.  Returns (kernel output, eager output,
+    tokens whose route the eager run would have flipped, summed over the
+    layers)."""
+    with recorded_routes() as routes:
+        out = fn(cfg)
+    with pinned_routes(routes) as flips:
+        ref = fn(cfg.scaled(attn_impl="xla"))
+    return out, ref, sum(flips)
+
+
+def dense_bytes(tree) -> int:
+    """The bytes of `tree` with every int8 weight held as bf16 instead."""
+    def walk(node):
+        if is_quantized(node):
+            return 2 * node["q"].numel()
+        if isinstance(node, dict):
+            return sum(walk(v) for v in node.values())
+        return node.numel() * node.element_size()
+    return walk(tree)
+
+
+def launches_now() -> dict:
+    return {"decode_attention.split": da_ops.launches_by_variant["split"],
+            **{f"flash_attention.{k}": v
+               for k, v in fa_ops.launches_by_variant.items()}}
+
+
+def launches_since(before: dict) -> dict:
+    now = launches_now()
+    return {k: now[k] - before[k] for k in now if now[k] != before[k]}
+
+
+def step_vs_eager(cfg, params, cache, tokens) -> tuple[float, float, int]:
+    """One decode step from clones of `cache` through the kernels and on
+    the eager path (routes pinned, `kernel_vs_eager`): (max |diff| / max
+    |logit|, top-1 agreement, route flips)."""
+    def step(c):
+        clone = {k: v.clone() for k, v in cache.items()}
+        return decode_step(params, clone, tokens, c)[0]
+    out, ref, flips = kernel_vs_eager(step, cfg)
+    if not torch.isfinite(out).all():
+        raise AssertionError("decode logits not finite")
+    return (float((out - ref).abs().max() / ref.abs().max()),
+            float((out.argmax(-1) == ref.argmax(-1)).float().mean()), flips)
+
+
+def phi_f32_card_vs_cpu(device) -> dict:
+    """11(a): Phi-3.5-MoE at full width, 2 layers, f32, numpy weights."""
+    cfg = get_config(PHI).scaled(num_layers=2, dtype="float32",
+                                 attn_impl="pallas")
+    t0 = time.perf_counter()
+    tree = numpy_moe_params(cfg, seed=0)
+    draw_s = time.perf_counter() - t0
+    smoke = init_params(get_config(PHI).scaled(
+        num_layers=2, d_model=64, num_heads=4, num_kv_heads=2, head_dim=16,
+        vocab_size=64, num_experts=4, moe_d_ff=32), device="cpu")
+    if [n for n, _ in tree_leaves_with_path(tree)] != \
+            [n for n, _ in tree_leaves_with_path(smoke)]:
+        raise AssertionError("the numpy tree is not init_params's tree")
+    params = params_from_numpy(tree, device)
+    host = params_from_numpy(tree, "cpu")
+    del tree
+    nbytes = tree_bytes(params)
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 64)))
+    with recorded_routes() as card_routes:
+        out, aux, _ = forward(params, {"tokens": tokens.to(device)}, cfg)
+    eager, eager_aux, _ = forward(params, {"tokens": tokens.to(device)},
+                                  cfg.scaled(attn_impl="xla"))
+    t0 = time.perf_counter()
+    with recorded_routes() as cpu_routes:
+        ref, ref_aux, _ = forward(host, {"tokens": tokens},
+                                  cfg.scaled(attn_impl="xla"))
+    cpu_s = time.perf_counter() - t0
+    if out.shape != (2, 64, cfg.vocab_size) or not torch.isfinite(out).all():
+        raise AssertionError("11(a) forward logits not finite")
+    flipped, gaps = 0, []
+    K = cfg.experts_per_token
+    for (ids_c, _), (ids_h, top_h) in zip(card_routes, cpu_routes):
+        bad = (ids_c.cpu() != ids_h).any(-1)
+        flipped += int(bad.sum())
+        gaps += (top_h[bad, K - 1] - top_h[bad, K]).tolist()
+    out_c = out.cpu()
+    err_eager = compare("11(a) forward vs eager", out, eager, MOE_TOL)
+    err_cpu = compare("11(a) forward vs the CPU", out_c, ref, MOE_TOL)
+    aux_err = abs(float(aux) - float(ref_aux))
+    if aux_err > 1e-6 or abs(float(aux) - float(eager_aux)) > 1e-6:
+        raise AssertionError(f"11(a) aux card {float(aux)} eager "
+                             f"{float(eager_aux)} cpu {float(ref_aux)}")
+    log("moe", f"(a) {PHI} full width, 2 layers, f32 ({nbytes} B, numpy "
+        f"draws {draw_s:.1f} s), B=2 S=64 through flash fma: max_abs_err "
+        f"{err_eager:.3g} against the eager path, {err_cpu:.3g} against "
+        f"the CPU's forward ({cpu_s:.1f} s) (rtol = atol = {MOE_TOL}); aux "
+        f"{float(aux):.8f} (cpu {float(ref_aux):.8f}); (token, layer) "
+        f"routes differing between card and CPU: {flipped} of "
+        f"{2 * 64 * cfg.num_layers}"
+        + (f", their K-th minus (K+1)-th probability {gaps}" if gaps else ""))
+    del host, out, eager, ref, out_c
+    cache_k = init_cache(cfg, 2, 16, device=device)
+    cache_e = init_cache(cfg, 2, 16, device=device)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 16))).to(
+        device)
+    worst = 0.0
+    for t in range(16):
+        lk, cache_k = decode_step(params, cache_k, toks[:, t:t + 1], cfg)
+        le, cache_e = decode_step(params, cache_e, toks[:, t:t + 1],
+                                  cfg.scaled(attn_impl="xla"))
+        worst = max(worst, compare(f"11(a) decode step {t}", lk, le,
+                                   MOE_TOL))
+    log("moe", f"(a) 16 decode steps (B=2, max_seq 16) through the split "
+        f"kernel against the eager decode: max_abs_err {worst:.3g} (rtol = "
+        f"atol = {MOE_TOL})")
+    return dict(bytes=nbytes, err_eager=err_eager, err_cpu=err_cpu,
+                routes_flipped=flipped, decode_err=worst)
+
+
+def phi_int8_refresh(cfg, params, device) -> dict:
+    """11(b), the store: new int8 wk/wv (codes and scales) and f32 router
+    leaves for all layers, committed; engine A refreshes to them through
+    a timeline read while serving, engine B swaps them in directly at the
+    same batch.  A's params equal the swapped tree, and A's and B's
+    tokens and caches are equal."""
+    gen = torch.Generator(device=device).manual_seed(1)
+    L, D = cfg.num_layers, cfg.d_model
+    KV = cfg.num_kv_heads * cfg.resolved_head_dim
+    new = {"layers": {
+        "attn": {w: quantize_weight(dense_init(gen, (L, D, KV), 1,
+                                               torch.bfloat16, device))
+                 for w in ("wk", "wv")},
+        "moe": {"router": dense_init(gen, (L, D, cfg.num_experts), 1,
+                                     torch.float32, device)}}}
+    nbytes = tree_bytes(new)
+    store = SpinnakerCheckpointStore(StoreConfig())
+    t0 = time.perf_counter()
+    manifest = store.save(1, new)
+    commit_s = time.perf_counter() - t0
+    store.sim.run_for(2.0)                  # followers apply the commit
+    lay = params["layers"]
+    swapped = {**params, "layers": {
+        **lay, "attn": {**lay["attn"], **new["layers"]["attn"]},
+        "moe": {**lay["moe"], **new["layers"]["moe"]}}}
+    scfg = ServeConfig(slots=8, max_seq=512, refresh_every_batches=8,
+                       eos_id=0)
+    waves = dict(n=8, lo=8, hi=16, new=8)
+    eng_a = ServingEngine(cfg, params, scfg, store=store, device=device)
+    refreshed_at = []
+
+    def watch(eng):
+        if eng.weights_step == 1 and not refreshed_at:
+            refreshed_at.append(eng.batches_run)
+    reqs_a, wall, step_a = serve_two_waves(eng_a, lambda: None, watch,
+                                           **waves)
+    if not refreshed_at or not trees_equal(eng_a.params, swapped):
+        raise AssertionError("engine A did not refresh to the commit, or "
+                             "its params differ from the committed leaves")
+    at = refreshed_at[0]
+
+    def swap(eng):
+        if eng.batches_run == at:
+            eng.params = swapped
+    eng_b = ServingEngine(cfg, params, scfg, device=device)
+    reqs_b, _, step_b = serve_two_waves(eng_b, lambda: None, swap, **waves)
+    toks_a = {r.rid: r.output for r in reqs_a}
+    if toks_a != {r.rid: r.output for r in reqs_b} or \
+            not trees_equal(eng_a.cache, eng_b.cache):
+        raise AssertionError("engine A's tokens or cache differ from B's")
+    out = dict(bytes=nbytes, chunks=sum(e["nchunks"]
+                                        for e in manifest["index"]),
+               commit_s=commit_s, commit_mb_per_s=nbytes / commit_s / 1e6,
+               refresh_batch=at, refresh_step_ms=1e3 * step_a[at - 1],
+               p50_ms=1e3 * float(np.median(step_a)),
+               no_store_p50_ms=1e3 * float(np.median(step_b)))
+    log("moe", f"(b) store: the int8 wk/wv codes and scales and the f32 "
+        f"router of all {L} layers ({nbytes} B in {out['chunks']} chunks) "
+        f"committed in {commit_s:.3f} s ({out['commit_mb_per_s']:.3f} "
+        f"MB/s); engine A refreshed through a timeline read at batch {at} "
+        f"(that step {out['refresh_step_ms']:.3f} ms), its params equal "
+        f"the swapped tree bit for bit, and its {len(toks_a)} requests' "
+        f"tokens and its KV cache equal engine B's, swapped directly at "
+        f"batch {at}; p50 step A {out['p50_ms']:.3f} ms, B "
+        f"{out['no_store_p50_ms']:.3f} ms")
+    del eng_a, eng_b, swapped, new
+    return out
+
+
+def labelled_profile(fn, labels) -> tuple[float, float, dict]:
+    """One call of `fn` under torch.profiler, with each (module, name,
+    label) of `labels` wrapped in a record_function range.  Each kernel
+    counts for the nearest enclosing label ("other" outside all).
+    Returns (wall ms, device busy ms, {label: device ms})."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    def wrap(fn_, label):
+        def wrapped(*a, **k):
+            with record_function(label):
+                return fn_(*a, **k)
+        return wrapped
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in labels]
+    for (mod, name, fn_), (_, _, label) in zip(saved, labels):
+        setattr(mod, name, wrap(fn_, label))
+    names = {label for _, _, label in labels}
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        for mod, name, fn_ in saved:
+            setattr(mod, name, fn_)
+    parts: dict = {}
+    for e in prof.events():
+        if not getattr(e, "kernels", None):
+            continue
+        p = e
+        while p is not None and p.name not in names:
+            p = p.cpu_parent
+        label = p.name if p is not None else "other"
+        parts[label] = parts.get(label, 0.0) + \
+            sum(k.duration for k in e.kernels) / 1e3
+    return wall_ms, sum(parts.values()), parts
+
+
+def phi_int8_prefill(cfg, params, device) -> dict:
+    """11(c): the int8 Phi-3.5-MoE's bf16 prefill, B=2 x 2048 tokens: a
+    warm-up and a timed call, the kernels against the eager path (routes
+    pinned), the top kernels and a profile by part."""
+    S = 2048
+    tokens = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (2, S))).to(device)
+
+    def run(c):
+        return prefill(params, {"tokens": tokens}, c, S)
+    run(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run(cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    last, plain, flips = kernel_vs_eager(run, cfg)
+    if last.shape != (2, cfg.vocab_size) or not torch.isfinite(last).all():
+        raise AssertionError("11(c) prefill logits not finite")
+    rel = float((last - plain).abs().max() / plain.abs().max())
+    agree = float((last.argmax(-1) == plain.argmax(-1)).float().mean())
+    if rel > PREFILL_REL_LIMIT:
+        raise AssertionError(f"11(c) prefill kernel vs eager: relative {rel}")
+    where_the_time_goes(cfg, params, tokens, S)
+    labels = [(layers_mod, "wcast", "dequantisation"),
+              (moe_mod, "wcast", "dequantisation"),
+              (moe_mod, "_experts", "expert GEMMs"),
+              (model_mod, "moe_ffn", "dispatch"),
+              (model_mod, "attention", "attention")]
+    wall_ms, busy_ms, parts = labelled_profile(lambda: run(cfg), labels)
+    out = dict(ms=1e3 * wall, prompt_tokens_per_s=2 * S / wall, rel=rel,
+               top1=agree, route_flips=flips, profiled_wall_ms=wall_ms,
+               busy_ms=busy_ms, idle_share=max(0.0, 1 - busy_ms / wall_ms),
+               parts_ms={k: round(v, 3) for k, v in sorted(
+                   parts.items(), key=lambda kv: -kv[1])})
+    log("moe", f"(c) {PHI} int8 prefill bf16 B=2 S={S} through flash "
+        f"wgmma: {out['ms']:.3f} ms, {out['prompt_tokens_per_s']:.1f} prompt "
+        f"tokens/s; against the eager path (its routes pinned to the "
+        f"kernel run's; {flips} (token, layer) routes would have flipped) "
+        f"max |diff| / max |logit| {rel:.3g} (limit {PREFILL_REL_LIMIT}), "
+        f"top-1 agreement {agree}; one labelled profiled call "
+        f"{wall_ms:.3f} ms wall, device busy {busy_ms:.3f} ms, idle share "
+        f"{out['idle_share']:.3f}; device ms by part (dispatch: route, "
+        f"sort, tables, gather, gating, combine; attention: its "
+        f"projections' GEMMs and the kernel; other: norms, embedding, "
+        f"unembedding): {out['parts_ms']}")
+    return out
+
+
+def phi_int8_path(device) -> dict:
+    """11(b) and (c): Phi-3.5-MoE at full width and depth, int8 weights."""
+    cfg = get_config(PHI).scaled(attn_impl="pallas")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_quantized_params(cfg, seed=0, device=device)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    nbytes, bf16 = tree_bytes(params), dense_bytes(params)
+    log("moe", f"(b) {PHI} full width and depth ({cfg.num_layers} layers), "
+        f"int8 weights built one layer at a time in {build_s:.1f} s: "
+        f"{nbytes} B of weights, against {bf16} B in bf16; "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated()} B")
+    requests = make_requests(cfg.vocab_size)
+    before = launches_now()
+    torch.cuda.reset_peak_memory_stats()
+    eng, wall, step_s = serve(cfg, params, ServeConfig(slots=8, max_seq=512),
+                              requests, device)
+    launched = launches_since(before)
+    if launched != {"decode_attention.split": cfg.num_layers * len(step_s)}:
+        raise AssertionError(f"serving launched {launched}, not "
+                             f"{cfg.num_layers} decodes a step")
+    out = report_serving(PHI, eng, requests, wall, step_s, nbytes,
+                         cfg.vocab_size, what="full width and depth, int8 "
+                         "weights, bf16 activations")
+    out.update(weight_bytes=nbytes, bf16_weight_bytes=bf16, build_s=build_s,
+               decode_launches=launched["decode_attention.split"])
+    tokens = torch.from_numpy(np.random.default_rng(6).integers(
+        0, cfg.vocab_size, (8, 1))).to(device)
+    rel, agree, flips = step_vs_eager(cfg, params, eng.cache, tokens)
+    if rel > DECODE_REL_LIMIT:
+        raise AssertionError(f"11(b) decode vs eager: relative {rel}")
+    log("moe", f"(b) {launched['decode_attention.split']} decode launches "
+        f"({cfg.num_layers} x {len(step_s)} steps); one more step from the "
+        f"served cache (pos {int(eng.cache['pos'])}) against the eager path "
+        f"on the same int8 weights (routes pinned; {flips} would have "
+        f"flipped): max |diff| / max |logit| {rel:.3g} (limit "
+        f"{DECODE_REL_LIMIT}), top-1 agreement {agree}")
+    out.update(step_rel=rel, step_top1=agree, step_route_flips=flips)
+    del eng
+    free()
+    out["store"] = phi_int8_refresh(cfg, params, device)
+    free()
+    out["prefill"] = phi_int8_prefill(cfg, params, device)
+    return out
+
+
+def kimi_one_layer(device) -> dict:
+    """11(d): Kimi-K2 at full width, 1 layer, dense bf16."""
+    cfg = get_config(KIMI).scaled(num_layers=1, attn_impl="pallas")
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, seed=0, device=device)
+    nbytes = tree_bytes(params)
+    init_peak = torch.cuda.max_memory_allocated()
+    rng = np.random.default_rng(7)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 256))).to(
+        device)
+    out, ref, flips = kernel_vs_eager(
+        lambda c: forward(params, {"tokens": tokens}, c)[0], cfg)
+    if not torch.isfinite(out).all():
+        raise AssertionError("11(d) forward logits not finite")
+    rel = float((out - ref).abs().max() / ref.abs().max())
+    agree = float((out.argmax(-1) == ref.argmax(-1)).float().mean())
+    if rel > PREFILL_REL_LIMIT:
+        raise AssertionError(f"11(d) forward vs eager: relative {rel}")
+    del out, ref
+    cache = init_cache(cfg, 8, 16, device=device)
+    worst, agrees, step_flips = 0.0, [], []
+    for t in range(8):
+        tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (8, 1))).to(
+            device)
+        r, a, f = step_vs_eager(cfg, params, cache, tok)
+        worst, agrees, step_flips = max(worst, r), agrees + [a], \
+            step_flips + [f]
+        _, cache = decode_step(params, cache, tok, cfg)
+    if worst > DECODE_REL_LIMIT:
+        raise AssertionError(f"11(d) decode vs eager: relative {worst}")
+    log("moe", f"(d) {KIMI} full width, 1 layer, bf16 ({nbytes} B, init "
+        f"peak {init_peak} B): B=1 S=256 forward through flash wgmma against "
+        f"the eager path (routes pinned; {flips} tokens would have flipped) "
+        f"max |diff| / max |logit| {rel:.3g} (limit {PREFILL_REL_LIMIT}), "
+        f"top-1 agreement {agree}; 8 decode steps at B=8 through the split "
+        f"kernel, each against the eager step (routes pinned; flips "
+        f"{step_flips}): relative {worst:.3g} at most (limit "
+        f"{DECODE_REL_LIMIT}), top-1 agreement {agrees}")
+    return dict(bytes=nbytes, forward_rel=rel, forward_route_flips=flips,
+                decode_rel=worst, decode_route_flips=step_flips)
+
+
+def moe_path(device) -> dict:
+    """Phase 11 (a)-(d), each part's kernel launches counted."""
+    out, parts = {}, {}
+    for key, run in (("a", phi_f32_card_vs_cpu), ("bc", phi_int8_path),
+                     ("d", kimi_one_layer)):
+        before = launches_now()
+        out[key] = run(device)
+        parts[key] = launches_since(before)
+        free()
+    log("moe", f"launches by part: {parts}")
+    out["launches_by_part"] = parts
+    return out
+
+
+def moe_attention_timings(device) -> dict:
+    """Phase 8 at phase 11's attention shapes."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    out = {}
+    for key, case, dtype, what in (
+            ("decode_phi", PHI_DECODE, bf16, "Phi-3.5-MoE serving"),
+            ("decode_phi_f32", PHI_DECODE_F32, f32,
+             "11(a), lengths 1..16, at T/2"),
+            ("decode_kimi", KIMI_DECODE, bf16, "Kimi-K2, 11(d)")):
+        out[key] = time_decode(case, dtype, device)
+        log("timing", f"decode_attention {dtype} (B,H,Hkv,T,hd,len)="
+            f"{case[:6]} ({what}): {out[key]}")
+    for key, case, dtype, var, what in (
+            ("flash_phi", PHI_FLASH, bf16, "wgmma",
+             "Phi-3.5-MoE prefill, 11(c)"),
+            ("flash_phi_f32", PHI_FLASH_F32, f32, "fma", "11(a)"),
+            ("flash_kimi", KIMI_FLASH, bf16, "wgmma", "Kimi-K2, 11(d)")):
+        out[key] = time_flash(case, dtype, device, var, iters=20)
+        log("timing", f"flash_attention {var} {dtype} (B,H,Hkv,S,hd)="
+            f"{case[:4] + case[5:6]} causal ({what}): {out[key]}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available", file=sys.stderr)
@@ -1509,6 +2063,8 @@ def main() -> int:
         "causal (DeepSeek-Coder-33B's heads): " + str(time_flash(
             (1, 56, 8, 2048, 2048, 128, True, 0), bf16, device, "wgmma",
             iters=20)))
+    moe_tim = moe_attention_timings(device)
+    free()
     # ssd_scan: tc at Mamba2's bf16 prefill shape (three launches)
     ssd = time_ssd(MAMBA_SHAPE, bf16, device, "tc")
     log("timing", f"ssd_scan tc bf16 b=2 s=2048 h=80 p=64 n=128 chunk=128 "
@@ -1538,6 +2094,16 @@ def main() -> int:
     paths["store"] = read_launches("store", ("decode_attention.split",))
     log("store", f"phase 10 took {time.perf_counter() - t0:.1f} s: {ckpt}")
     free()
+
+    # -- phase 11: the moe family and int8 weights ----------------------------
+    t0 = time.perf_counter()
+    zero_launches()
+    moe = moe_path(device)
+    paths["moe"] = read_launches("moe", ("decode_attention.split",
+                                         "flash_attention.wgmma",
+                                         "flash_attention.fma"))
+    log("moe", f"phase 11 took {time.perf_counter() - t0:.1f} s: {moe}")
+    free()
     launches = {k: sum(p[k] for p in paths.values())
                 for k in paths["smollm"]}
     log("timing", f"main-path launches per path: {paths}")
@@ -1559,6 +2125,9 @@ def main() -> int:
         "fma": variant("ssd_scan", "fma", "ssd_scan.cu",
                        "f32 b=2 s=256 h=80 p=64 n=128 chunk=128",
                        tim["ssd_fma_256"])}
+    fa_vars["wgmma"]["phi_prefill"] = moe_tim["flash_phi"]
+    fa_vars["wgmma"]["kimi"] = moe_tim["flash_kimi"]
+    fa_vars["fma"]["phi_f32"] = moe_tim["flash_phi_f32"]
     ssd_vars["fma"]["at_s2048"] = tim["ssd_fma_2048"]
     ssd_vars["fma"]["zamba2_s256"] = tim["ssd_fma_256_zamba"]
     da_vars = {"split": variant("decode_attention", "split",
@@ -1570,6 +2139,9 @@ def main() -> int:
     da_vars["split"]["full_context_step"] = full_ctx
     da_vars["split"]["f32_smollm_t64"] = tim["decode_f32_t64"]
     da_vars["split"]["f32_zamba2_t256"] = tim["decode_f32_t256"]
+    da_vars["split"]["phi_serving"] = moe_tim["decode_phi"]
+    da_vars["split"]["phi_f32_t16"] = moe_tim["decode_phi_f32"]
+    da_vars["split"]["kimi"] = moe_tim["decode_kimi"]
     kernels = [
         dict(name="decode_attention", route="cuda",
              source="src/repro_torch/csrc/decode_attention.cu",

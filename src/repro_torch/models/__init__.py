@@ -1,5 +1,5 @@
-"""PyTorch model library (dense, ssm and hybrid families); mirrors
-`repro.models`."""
+"""PyTorch model library (dense, moe, ssm and hybrid families; int8
+weights in `quant`); mirrors `repro.models`."""
 
 from .config import ModelConfig
 from .model import (decode_step, forward, init_cache, init_params, loss_fn,

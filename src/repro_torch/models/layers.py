@@ -1,8 +1,9 @@
 """Building-block layers in PyTorch; a port of `repro/models/layers.py`.
 
 Parameters are plain dicts of tensors with the reference's names and
-layout (matmul weights stored (in, out)).  Every layer is an `init_*`
-function drawing from a `torch.Generator` and an apply function.
+layout (matmul weights stored (in, out), dense or as `quant`'s int8
+{"q", "s"}).  Every layer is an `init_*` function drawing one layer's
+parameters from a `torch.Generator` and an apply function.
 `cfg.attn_impl == "pallas"` routes attention through the hand-written
 kernels (`repro_torch.kernels`, forward-only); "xla" is the eager path,
 the counterpart of the reference's XLA branch, "xla_chunked" its online
@@ -19,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from .config import ModelConfig
+from .quant import wcast
 
 # ---------------------------------------------------------------------------
 # init helpers
@@ -28,7 +30,8 @@ from .config import ModelConfig
 def _trunc_normal(gen, shape, std, dtype, device):
     x = torch.empty(shape, dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return (x * std).to(dtype)
+    # in place: at Kimi-K2's widths one expert stack is 22.5 GB in f32
+    return x.mul_(std).to(dtype)
 
 
 def dense_init(gen, shape, in_axis: int = 0, dtype=torch.float32,
@@ -47,9 +50,8 @@ def embed_init(gen, shape, dtype=torch.float32, device="cpu",
 # ---------------------------------------------------------------------------
 
 
-def init_rmsnorm(d: int, device="cpu", layers: tuple = ()):
-    return {"scale": torch.ones(layers + (d,), dtype=torch.float32,
-                                device=device)}
+def init_rmsnorm(d: int, device="cpu"):
+    return {"scale": torch.ones((d,), dtype=torch.float32, device=device)}
 
 
 def rms_norm(params, x: torch.Tensor, eps: float) -> torch.Tensor:
@@ -59,8 +61,10 @@ def rms_norm(params, x: torch.Tensor, eps: float) -> torch.Tensor:
     return (y * params["scale"]).to(x.dtype)
 
 
-def linear(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    return x @ w.to(x.dtype)
+def linear(w, x: torch.Tensor) -> torch.Tensor:
+    """x @ w for a dense or an int8 weight (dequantized at every call, as
+    the reference's `linear`)."""
+    return x @ wcast(w, x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -90,19 +94,14 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def init_attention(gen, cfg: ModelConfig, dtype, device="cpu",
-                   layers: tuple = ()):
+def init_attention(gen, cfg: ModelConfig, dtype, device="cpu"):
     D = cfg.d_model
     H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     return {
-        "wq": dense_init(gen, layers + (D, H * hd), len(layers), dtype,
-                         device),
-        "wk": dense_init(gen, layers + (D, Hkv * hd), len(layers), dtype,
-                         device),
-        "wv": dense_init(gen, layers + (D, Hkv * hd), len(layers), dtype,
-                         device),
-        "wo": dense_init(gen, layers + (H * hd, D), len(layers), dtype,
-                         device),
+        "wq": dense_init(gen, (D, H * hd), 0, dtype, device),
+        "wk": dense_init(gen, (D, Hkv * hd), 0, dtype, device),
+        "wv": dense_init(gen, (D, Hkv * hd), 0, dtype, device),
+        "wo": dense_init(gen, (H * hd, D), 0, dtype, device),
     }
 
 
@@ -268,13 +267,11 @@ def attention_decode(params, x: torch.Tensor, cfg: ModelConfig,
 # ---------------------------------------------------------------------------
 
 
-def init_mlp(gen, d_model: int, d_ff: int, dtype, device="cpu",
-             layers: tuple = ()):
-    n = len(layers)
+def init_mlp(gen, d_model: int, d_ff: int, dtype, device="cpu"):
     return {
-        "w_gate": dense_init(gen, layers + (d_model, d_ff), n, dtype, device),
-        "w_up": dense_init(gen, layers + (d_model, d_ff), n, dtype, device),
-        "w_down": dense_init(gen, layers + (d_ff, d_model), n, dtype, device),
+        "w_gate": dense_init(gen, (d_model, d_ff), 0, dtype, device),
+        "w_up": dense_init(gen, (d_model, d_ff), 0, dtype, device),
+        "w_down": dense_init(gen, (d_ff, d_model), 0, dtype, device),
     }
 
 

@@ -17,29 +17,27 @@ from .config import ModelConfig
 from .layers import dense_init, init_rmsnorm, linear, rms_norm
 
 
-def init_mamba2(gen, cfg: ModelConfig, dtype, device, layers: tuple = ()):
+def init_mamba2(gen, cfg: ModelConfig, dtype, device):
     """The reference's distributions: log-uniform dt in [1e-3, 1e-1] held
     as softplus^-1 in `dt_bias`, A = -linspace(1, 16, H), D = 1."""
     D, Din = cfg.d_model, cfg.d_inner
     N, H, G = cfg.ssm_state, cfg.ssm_heads, cfg.ssm_groups
     conv_dim = Din + 2 * G * N
-    n = len(layers)
-    u = torch.rand(layers + (H,), generator=gen, device=device)
+    u = torch.rand((H,), generator=gen, device=device)
     lo, hi = math.log(1e-3), math.log(1e-1)
     dt = torch.exp(lo + (hi - lo) * u)
-    a_log = torch.log(torch.linspace(1.0, 16.0, H, device=device))
     return {
-        "in_proj": dense_init(gen, layers + (D, 2 * Din + 2 * G * N + H), n,
-                              dtype, device),
-        "conv_w": dense_init(gen, layers + (cfg.ssm_conv_width, conv_dim), n,
-                             dtype, device) * 0.5,
-        "conv_b": torch.zeros(layers + (conv_dim,), dtype=torch.float32,
+        "in_proj": dense_init(gen, (D, 2 * Din + 2 * G * N + H), 0, dtype,
+                              device),
+        "conv_w": dense_init(gen, (cfg.ssm_conv_width, conv_dim), 0, dtype,
+                             device) * 0.5,
+        "conv_b": torch.zeros((conv_dim,), dtype=torch.float32,
                               device=device),
         "dt_bias": torch.log(torch.expm1(dt)),
-        "A_log": a_log.expand(layers + (H,)).clone(),
-        "D": torch.ones(layers + (H,), dtype=torch.float32, device=device),
-        "norm": init_rmsnorm(Din, device, layers),
-        "out_proj": dense_init(gen, layers + (Din, D), n, dtype, device),
+        "A_log": torch.log(torch.linspace(1.0, 16.0, H, device=device)),
+        "D": torch.ones((H,), dtype=torch.float32, device=device),
+        "norm": init_rmsnorm(Din, device),
+        "out_proj": dense_init(gen, (Din, D), 0, dtype, device),
     }
 
 

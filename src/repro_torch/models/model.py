@@ -1,14 +1,15 @@
-"""Model assembly in PyTorch, dense, ssm and hybrid families; a port of
-`repro/models/model.py`.
+"""Model assembly in PyTorch, for all four families (dense, moe, ssm,
+hybrid); a port of `repro/models/model.py`.
 
 embedding -> stacked layers (a Python loop over the leading L axis, in
 place of `lax.scan`; each layer's body checkpointed under `cfg.remat`
 when gradients are on) -> norm -> tied or separate unembedding, and the
 next-token loss `loss_fn`.  Hybrid models run Mamba2 blocks and apply
 one *shared* attention + MLP block after every `attn_every`-th layer
-(Zamba2-style).  Parameters keep the
-reference's tree, so `repro_torch.convert` carries weights across both
-ways.  The moe family comes with a later slice.
+(Zamba2-style); moe layers replace the MLP with `moe.moe_ffn`, whose
+router aux loss the forward sums over the layers.  Parameters keep the
+reference's tree, dense or with `quant`'s int8 weights, so
+`repro_torch.convert` carries weights across both ways.
 """
 
 from __future__ import annotations
@@ -21,12 +22,13 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..device import resolve
+from ..tree import tree_map
 from .config import ModelConfig
 from .layers import (attention, attention_decode, embed_init, init_attention,
                      init_mlp, init_rmsnorm, mlp, rms_norm)
 from .mamba2 import init_mamba2, init_ssm_cache, mamba2_block, mamba2_decode
-
-_LATER = {"moe": "the MoE/int8 slice"}
+from .moe import init_moe, moe_ffn
+from .quant import quantize_tree
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -36,10 +38,8 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "ssm", "hybrid"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet; it comes with "
-            f"{_LATER.get(cfg.family, 'a later slice')}")
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
+        raise ValueError(cfg.family)
 
 
 # ---------------------------------------------------------------------------
@@ -47,41 +47,70 @@ def _check_family(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
-    """Random parameters with the reference's distributions (truncated
-    normal, std 1/sqrt(fan_in); embeddings std 0.02), drawn from a
-    `torch.Generator` seeded with `seed` on `device`.  The values differ
-    from `repro.models.init_params`; convert those to compare."""
+def _layer_init(gen, cfg: ModelConfig, dt, dev) -> dict:
+    """One layer's parameters (no leading L axis)."""
+    D = cfg.d_model
+    if cfg.family in ("ssm", "hybrid"):
+        return {"norm": init_rmsnorm(D, dev),
+                "mamba": init_mamba2(gen, cfg, dt, dev)}
+    layer = {"attn_norm": init_rmsnorm(D, dev),
+             "attn": init_attention(gen, cfg, dt, dev),
+             "mlp_norm": init_rmsnorm(D, dev)}
+    if cfg.family == "moe":
+        layer["moe"] = init_moe(gen, cfg, dt, dev)
+    else:
+        layer["mlp"] = init_mlp(gen, D, cfg.d_ff, dt, dev)
+    return layer
+
+
+def _init(cfg: ModelConfig, seed: int, device, transform) -> dict:
+    """Parameters drawn one layer at a time into the stacks, each layer
+    (and the rest of the tree) passed through `transform` first."""
     _check_family(cfg)
     dev = resolve(device)
     dt = _dtype(cfg)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    L, D = (cfg.num_layers,), cfg.d_model
+    D, L = cfg.d_model, cfg.num_layers
     params: dict[str, Any] = {
         "embed": embed_init(gen, (cfg.vocab_size, D), dt, dev),
         "final_norm": init_rmsnorm(D, dev),
     }
     if not cfg.tie_embeddings:
         params["unembed"] = embed_init(gen, (D, cfg.vocab_size), dt, dev)
-    if cfg.family == "dense":
-        params["layers"] = {
-            "attn_norm": init_rmsnorm(D, dev, L),
-            "attn": init_attention(gen, cfg, dt, dev, L),
-            "mlp_norm": init_rmsnorm(D, dev, L),
-            "mlp": init_mlp(gen, D, cfg.d_ff, dt, dev, L),
-        }
-        return params
-    params["layers"] = {"norm": init_rmsnorm(D, dev, L),
-                        "mamba": init_mamba2(gen, cfg, dt, dev, L)}
+    for i in range(L):
+        layer = transform(_layer_init(gen, cfg, dt, dev))
+        if i == 0:
+            params["layers"] = tree_map(
+                lambda t: t.new_empty((L,) + t.shape), layer)
+        tree_map(lambda s, t: s[i].copy_(t), params["layers"], layer)
+        del layer
     if cfg.family == "hybrid":
         # one shared attention + MLP block (weights reused at each slot)
-        params["shared_attn"] = {
+        params["shared_attn"] = transform({
             "attn_norm": init_rmsnorm(D, dev),
             "attn": init_attention(gen, cfg, dt, dev),
             "mlp_norm": init_rmsnorm(D, dev),
             "mlp": init_mlp(gen, D, cfg.d_ff, dt, dev),
-        }
+        })
     return params
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
+    """Random parameters with the reference's distributions (truncated
+    normal, std 1/sqrt(fan_in); embeddings std 0.02), drawn from a
+    `torch.Generator` seeded with `seed` on `device`, one layer at a time
+    into the (L, ...) stacks.  The values differ from
+    `repro.models.init_params`; convert those to compare."""
+    return _init(cfg, seed, device, lambda tree: tree)
+
+
+def init_quantized_params(cfg: ModelConfig, seed: int = 0,
+                          device="cuda") -> dict:
+    """`quantize_tree(init_params(cfg, seed, device))`, bit for bit (the
+    same draws; the scale reduces axis -2 only, so each layer quantizes
+    alone as it would in the stack), built one layer at a time: the dense
+    weights of one layer exist at once, never the dense stack."""
+    return _init(cfg, seed, device, quantize_tree)
 
 
 def hybrid_attn_mask(cfg: ModelConfig) -> list[bool]:
@@ -176,32 +205,37 @@ def forward(params: dict, batch: dict, cfg: ModelConfig):
     attn_mask = hybrid_attn_mask(cfg)
 
     def body(h, lp, use_attn):
-        if cfg.family == "dense":
+        if cfg.family in ("dense", "moe"):
             h = h + attention(lp["attn"],
                               rms_norm(lp["attn_norm"], h, cfg.norm_eps),
                               cfg, positions)
-            return h + mlp(lp["mlp"],
-                           rms_norm(lp["mlp_norm"], h, cfg.norm_eps),
-                           cfg.activation)
+            hin = rms_norm(lp["mlp_norm"], h, cfg.norm_eps)
+            if cfg.family == "moe":
+                m, aux = moe_ffn(lp["moe"], hin, cfg)
+                return h + m, aux
+            return h + mlp(lp["mlp"], hin, cfg.activation), 0.0
         h = h + mamba2_block(lp["mamba"], rms_norm(lp["norm"], h,
                                                    cfg.norm_eps), cfg)
         if use_attn:
             h = _shared_attn_block(cfg, h, params["shared_attn"], positions)
-        return h
+        return h, 0.0
 
     body = _remat(cfg, body)
+    aux = 0.0
     for i in range(cfg.num_layers):
-        h = body(h, _layer_slice(params["layers"], i), attn_mask[i])
+        # the MoE aux summed in layer order, in f32
+        h, a = body(h, _layer_slice(params["layers"], i), attn_mask[i])
+        aux = aux + a
     h = rms_norm(params["final_norm"], h, cfg.norm_eps)
     logits = _unembed(params, cfg, h).to(DTYPES[cfg.logit_dtype])
-    return logits, 0.0, mask
+    return logits, aux, mask
 
 
 def loss_fn(params: dict, batch: dict, cfg: ModelConfig):
-    """Next-token cross entropy (+ the MoE aux term, 0 until MoE is
-    ported) over f32 log-probabilities, weighted by `mask & (labels >=
-    0)` (VLM patch positions are masked out).  Returns (loss, {"ce",
-    "aux", "tokens"})."""
+    """Next-token cross entropy over f32 log-probabilities, weighted by
+    `mask & (labels >= 0)` (VLM patch positions are masked out), plus the
+    MoE router aux loss (0 for the other families).  Returns (loss,
+    {"ce", "aux", "tokens"})."""
     logits, aux, mask = forward(params, batch, cfg)
     labels = batch["labels"]
     lw = mask & (labels >= 0)
@@ -231,7 +265,7 @@ def prefill(params: dict, batch: dict, cfg: ModelConfig, max_seq: int):
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
                device="cuda") -> dict:
     """On `device`: {"pos": 0-d int32} and, by family,
-    dense: "k"/"v" (L, batch, Hkv, max_seq, hd);
+    dense and moe: "k"/"v" (L, batch, Hkv, max_seq, hd);
     ssm: "ssm": {"state": (L, batch, H, P, N), "conv": (L, batch, K-1, C)};
     hybrid: "ssm", and "k"/"v" (L // attn_every, batch, Hkv, w, hd) with
     w = min(attn_window or max_seq, max_seq), a rolling window."""
@@ -240,7 +274,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
     dt = dtype or _dtype(cfg)
     L = cfg.num_layers
     cache = {"pos": torch.zeros((), dtype=torch.int32, device=dev)}
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         slots, w = L, max_seq
     else:
         cache["ssm"] = init_ssm_cache(cfg, batch, dt, dev, (L,))
@@ -270,15 +304,21 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
         h = tokens.to(dt)
     else:
         h = params["embed"][tokens].to(dt)            # (B,1,D)
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         for i in range(cfg.num_layers):
             lp = _layer_slice(params["layers"], i)
             x = rms_norm(lp["attn_norm"], h, cfg.norm_eps)
             a, _, _ = attention_decode(lp["attn"], x, cfg, cache["k"][i],
                                        cache["v"][i], pos)
             h = h + a
-            h = h + mlp(lp["mlp"], rms_norm(lp["mlp_norm"], h, cfg.norm_eps),
-                        cfg.activation)
+            hin = rms_norm(lp["mlp_norm"], h, cfg.norm_eps)
+            if cfg.family == "moe":
+                # capacity counts this step's B tokens only (the aux is
+                # dropped, as the reference's decode drops it)
+                m, _ = moe_ffn(lp["moe"], hin, cfg)
+            else:
+                m = mlp(lp["mlp"], hin, cfg.activation)
+            h = h + m
     else:
         h = _ssm_decode_layers(params, cache, h, cfg)
     h = rms_norm(params["final_norm"], h, cfg.norm_eps)

@@ -16,6 +16,7 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models import (decode_step, forward, init_cache, init_params,
                                 prefill)
+from repro_torch.models.model import init_quantized_params
 from repro_torch.serve.engine import Request, ServeConfig, ServingEngine
 from repro_torch.train.step import loss_and_grads
 
@@ -362,6 +363,36 @@ def test_ssm_models_decode_matches_forward_through_the_kernels(cuda, arch):
     slots = cfg.num_layers // cfg.attn_every if cfg.attn_every else 0
     assert fa_ops.launches == f0 + slots
     assert da_ops.launches == d0 + S * slots
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("arch", ["kimi-k2-1t-a32b", "phi3.5-moe-42b-a6.6b"])
+def test_moe_models_through_the_kernels_match_eager(cuda, arch, quantized):
+    """The MoE smoke configs at head dim 128, f32, dense or int8 weights:
+    the forward through flash fma and 8 decode steps through the split
+    kernel, each against the eager path on the card within the
+    whole-model tolerance 2e-4."""
+    cfg = smoke_config(arch).scaled(dtype="float32", attn_impl="pallas",
+                                    head_dim=128)
+    init = init_quantized_params if quantized else init_params
+    params = init(cfg, seed=0, device=cuda)
+    eager = cfg.scaled(attn_impl="xla")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 16))).to(cuda)
+    d0, f0 = da_ops.launches, fa_ops.launches
+    out, aux, _ = forward(params, {"tokens": tokens}, cfg)
+    ref, ref_aux, _ = forward(params, {"tokens": tokens}, eager)
+    torch.testing.assert_close(out, ref, rtol=2e-4, atol=2e-4)
+    assert abs(float(aux) - float(ref_aux)) <= 1e-6 and float(aux) > 0
+    assert fa_ops.launches == f0 + cfg.num_layers
+    cache = init_cache(cfg, 2, 16, device=cuda)
+    cache_e = init_cache(cfg, 2, 16, device=cuda)
+    for t in range(8):
+        logits, cache = decode_step(params, cache, tokens[:, t:t + 1], cfg)
+        ref, cache_e = decode_step(params, cache_e, tokens[:, t:t + 1],
+                                   eager)
+        torch.testing.assert_close(logits, ref, rtol=2e-4, atol=2e-4)
+    assert da_ops.launches == d0 + 8 * cfg.num_layers
 
 
 def test_engine_tokens_equal_with_kernels_and_plain(cuda):

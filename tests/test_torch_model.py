@@ -1,5 +1,6 @@
 """The port's dense model against the JAX model on the same converted
-parameters and inputs (smoke configs, f32, CPU)."""
+parameters and inputs (smoke configs, f32, CPU), and the reference's
+per-architecture smoke checks on the port for all ten archs."""
 
 import jax
 import jax.numpy as jnp
@@ -8,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro.configs import smoke_config
+from repro.configs import list_archs, smoke_config
 from repro.launch.shapes import make_batch
 from repro.models import decode_step as j_decode_step
 from repro.models import forward as j_forward
@@ -18,6 +19,10 @@ from repro.models import prefill as j_prefill
 from repro_torch import models as tm
 from repro_torch.convert import params_from_numpy, params_to_numpy
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.launch.shapes import make_batch as t_make_batch
+from repro_torch.launch.shapes import make_decode_tokens
+from repro_torch.train.step import loss_and_grads
+from repro_torch.tree import tree_leaves
 
 DENSE = ["smollm-360m", "gemma-7b", "deepseek-coder-33b", "mistral-large-123b",
          "phi-3-vision-4.2b", "musicgen-large"]
@@ -151,16 +156,59 @@ def test_init_params_matches_the_reference_tree_and_distribution():
                        port["layers"]["attn"]["wq"])
 
 
-def test_unported_families_and_impls_raise():
-    for arch in ("kimi-k2-1t-a32b", "phi3.5-moe-42b-a6.6b"):
-        with pytest.raises(NotImplementedError, match="MoE"):
-            tm.init_params(smoke_config(arch), device="cpu")
-        with pytest.raises(NotImplementedError, match="MoE"):
-            tm.init_cache(smoke_config(arch), 1, 8, device="cpu")
+def test_unported_attn_impl_raises():
     cfg, _, tp = _setup("smollm-360m")
     with pytest.raises(NotImplementedError, match="splash"):
         tm.forward(tp, {"tokens": torch.zeros(1, 4, dtype=torch.long)},
                    cfg.scaled(attn_impl="splash"))
+
+
+# ---------------------------------------------------------------------------
+# tests/test_arch_smoke.py's first three checks on the port, all ten archs
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch", list_archs())
+def test_arch_forward_and_loss(arch):
+    cfg = smoke_config(arch).scaled(remat=False, dtype="float32")
+    params = tm.init_params(cfg, seed=0, device="cpu")
+    batch = t_make_batch(cfg, np.random.default_rng(0), 2, 32, device="cpu")
+    logits, aux, mask = tm.forward(params, batch, cfg)
+    assert logits.shape == (2, 32, cfg.vocab_size)
+    assert torch.isfinite(logits).all()
+    loss, metrics = tm.loss_fn(params, batch, cfg)
+    assert loss.shape == () and torch.isfinite(loss)
+    assert metrics["ce"] > 0
+    assert (float(aux) > 0) == (cfg.family == "moe")
+
+
+@pytest.mark.parametrize("arch", list_archs())
+def test_arch_one_grad_step_no_nans(arch):
+    cfg = smoke_config(arch).scaled(remat=True, dtype="float32")
+    params = tm.init_params(cfg, seed=1, device="cpu")
+    batch = t_make_batch(cfg, np.random.default_rng(0), 2, 32, device="cpu")
+    loss, _, grads = loss_and_grads(params, batch, cfg)
+    assert torch.isfinite(loss)
+    leaves = tree_leaves(grads)
+    assert leaves
+    for g in leaves:
+        assert torch.isfinite(g).all(), "NaN/inf gradient"
+    assert sum(float(g.abs().sum()) for g in leaves) > 0
+
+
+@pytest.mark.parametrize("arch", list_archs())
+def test_arch_decode_step(arch):
+    cfg = smoke_config(arch).scaled(remat=False, dtype="float32")
+    params = tm.init_params(cfg, seed=2, device="cpu")
+    B, max_seq = 2, 64
+    cache = tm.init_cache(cfg, B, max_seq, device="cpu")
+    rng = np.random.default_rng(0)
+    for _ in range(3):
+        tok = make_decode_tokens(cfg, rng, B, device="cpu")
+        logits, cache = tm.decode_step(params, cache, tok, cfg)
+        assert logits.shape == (B, cfg.vocab_size)
+        assert torch.isfinite(logits).all()
+    assert int(cache["pos"]) == 3
 
 
 def test_entry_points_default_to_the_card():

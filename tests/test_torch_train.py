@@ -45,7 +45,8 @@ from repro_torch.tree import tree_leaves
 ROOT = Path(__file__).resolve().parents[1]
 # whole-model tolerances, tests/test_pallas_model_integration.py
 GRAD_TOL = {"smollm-360m": 2e-4, "phi-3-vision-4.2b": 2e-4,
-            "musicgen-large": 2e-4, "mamba2-2.7b": 5e-4, "zamba2-7b": 5e-4}
+            "musicgen-large": 2e-4, "mamba2-2.7b": 5e-4, "zamba2-7b": 5e-4,
+            "kimi-k2-1t-a32b": 2e-4, "phi3.5-moe-42b-a6.6b": 2e-4}
 
 
 def _np_tree(tree):
@@ -92,9 +93,9 @@ def _stream_batch(cfg, seed=5, batch=8, seq=32, step=0, mixture=False):
 
 @pytest.mark.parametrize("arch", list(GRAD_TOL))
 def test_loss_and_grads_match_jax(arch):
-    """Text, VLM (patch positions masked out), audio frames, Mamba2 and
-    the hybrid: loss within 1e-5 relative, every grad leaf within the
-    whole-model tolerance of its max |g|."""
+    """Text, VLM (patch positions masked out), audio frames, Mamba2, the
+    hybrid and both MoE archs: loss within 1e-5 relative, every grad leaf
+    within the whole-model tolerance of its max |g|."""
     cfg, jp, tp = _setup(arch)
     batch = make_batch(cfg, np.random.default_rng(0), batch=2, seq=32)
     (jloss, jmet), jgrads = jax.jit(
@@ -103,8 +104,11 @@ def test_loss_and_grads_match_jax(arch):
     loss, met, grads = loss_and_grads(tp, _tbatch(batch), cfg)
     assert float(loss) == pytest.approx(float(jloss), rel=1e-5)
     assert float(met["ce"]) == pytest.approx(float(jmet["ce"]), rel=1e-5)
-    assert float(met["aux"]) == 0.0 and int(met["tokens"]) == \
-        int(jmet["tokens"])
+    # the MoE router aux (0 for the other families), in the loss and
+    # its grads
+    assert float(met["aux"]) == pytest.approx(float(jmet["aux"]), abs=1e-6)
+    assert (float(met["aux"]) > 0) == (cfg.family == "moe")
+    assert int(met["tokens"]) == int(jmet["tokens"])
     if cfg.modality == "vlm":
         assert int(met["tokens"]) == 2 * (32 - cfg.num_patches)
     tol = GRAD_TOL[arch]
