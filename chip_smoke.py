@@ -87,7 +87,23 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      profile split into dequantisation, expert GEMMs, dispatch and
      attention; (d) Kimi-K2 at full width cut to 1 layer, dense bf16: a
      B=1, S=256 forward through flash wgmma and 8 decode steps at B=8
-     through the split kernel, each against the eager path.
+     through the split kernel, each against the eager path;
+ 12. the paper's §9 workload engine (`repro_torch.workload`, the op
+     stream sampled on the card, the cluster on the host's simulator):
+     (a) an OpStream over 10,000,000 zipfian keys (theta 0.99, a 40 MB
+     f32 CDF on the card): sampled ops/s at batch 8192 with and without
+     the copy to the host, the rank-1 key's share over 2^20 ops within
+     5 % of 1/H, and the card's transform against the CPU's on the same
+     2^20 uniforms (ranks, ops, sizes exact; gaps rtol 1e-6); (b) Fig. 8
+     at the reference bench's --quick configuration (1000 keys, 16
+     clients, 3 s; `benchmarks/spinnaker_bench.py` base_spec/base_cfg):
+     Spinnaker strong and timeline, Cassandra quorum and eventual, each
+     arm's p50/p99, throughput, host seconds, simulated ops per host
+     second and seconds in `OpStream._refill`, then the three claim
+     ratios held to the envelope (read/quorum <= 1.05, write p50 <= 1.30,
+     throughput >= 0.95); (c) Fig. 9 at --quick: range 0's leader killed
+     at 2 s, restarted at 6 s of 8; writes must resume, and the recovery
+     window is printed.
 Phase 3 also checks, and phase 8 times, phase 11's attention shapes:
 Phi-3.5-MoE's 32/8 heads at hd 128 (bf16 decode over 8 x 512 cached
 tokens, the bf16 2048-token prefill, and the f32 shapes of 11(a)) and
@@ -98,12 +114,13 @@ steps timed, one profiled (device busy, idle share, decode_attention's
 share), the first step's logits against the eager path.
 Phases 4-5, 6 and 7 are the three serving main paths, phase 9 the
 training path, phase 10 the store path (commit, restore, serve with
-refresh, resume), phase 11 the moe path.  The launch counters are zeroed
-just before each and read just after it; every kernel variant of a
-serving path must have launched there, decode_attention on the store
-path's engine, decode and both flash variants on the moe path, and none
-on the training path (the kernels are forward-only, so
-training takes the eager attention path, as the reference's does).  The
+refresh, resume), phase 11 the moe path, phase 12 the workload path.
+The launch counters are zeroed just before each and read just after it;
+every kernel variant of a serving path must have launched there,
+decode_attention on the store path's engine, decode and both flash
+variants on the moe path, and none on the training path (the kernels
+are forward-only, so training takes the eager attention path, as the
+reference's does) or on the workload path (no model runs there).  The
 JSON line's `launches` is a kernel's sum over the paths (one ssd_scan
 call of either variant is three launches).  The last two lines are a
 JSON object of per-kernel numbers, with a `variants` entry per kernel,
@@ -162,6 +179,10 @@ from repro_torch.train.step import (TrainConfig,  # noqa: E402
                                     make_train_step)
 from repro_torch.tree import (tree_leaves, tree_leaves_with_path,  # noqa: E402
                               tree_map)
+from repro_torch.workload import (ExperimentConfig,  # noqa: E402
+                                  WorkloadSpec, run_cassandra_workload,
+                                  run_spinnaker_workload)
+from repro_torch.workload import generators as wl_gen  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12                 # H100 SXM data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12,     # dense tensor-core bf16
@@ -1981,6 +2002,204 @@ def moe_attention_timings(device) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the paper's §9 workload engine, the op stream on the card
+
+
+ZIPF_KEYS = 10_000_000
+# benchmarks/spinnaker_bench.py's --quick configuration (base_spec,
+# base_cfg), copied because that file imports the JAX package; the full
+# one has 5000 keys, 32 clients, 2 s warm-up and 15 s measured
+QUICK_SPEC = dict(num_keys=1000, key_dist="zipfian", zipf_theta=0.99,
+                  read_frac=0.80, write_frac=0.15, rmw_frac=0.03,
+                  cond_frac=0.02, value_size=4096)
+QUICK_CFG = dict(n_nodes=5, disk="ssd", n_clients=16, ranges_per_node=8,
+                 warmup=0.5, duration=3.0, preload_cap=1000)
+LEADER_KILL = """
+at {t_kill}s crash leader of 0
+at {t_back}s restart crashed
+"""
+# the paper's claims with the reference bench's slack
+# (spinnaker_bench.py CLAIM_TARGETS): strong reads at or under quorum
+# reads, writes within 30 % of eventual ones, throughput within 5 %
+CLAIM_TARGETS = {"read_vs_quorum_ratio_max": 1.05,
+                 "write_p50_ratio_max": 1.30,
+                 "throughput_ratio_min": 0.95}
+
+
+@contextlib.contextmanager
+def refill_clock():
+    """Host seconds and count of every OpStream._refill in the block (the
+    card's sampling, its one copy to the host and the host's scramble)."""
+    spent = {"refill_s": 0.0, "refills": 0}
+    inner = wl_gen.OpStream._refill
+
+    def timed(self):
+        t0 = time.perf_counter()
+        inner(self)
+        spent["refill_s"] += time.perf_counter() - t0
+        spent["refills"] += 1
+
+    wl_gen.OpStream._refill = timed
+    try:
+        yield spent
+    finally:
+        wl_gen.OpStream._refill = inner
+
+
+def generator_at_scale(device, n_ops=1 << 20) -> dict:
+    """12(a): a zipfian stream over ZIPF_KEYS keys (theta 0.99, a 40 MB f32
+    CDF on `device`): sampling rate, the rank-1 key's share against 1/H,
+    and the transform on `device` against the CPU's on the same draws."""
+    spec = WorkloadSpec(num_keys=ZIPF_KEYS, key_dist="zipfian",
+                        zipf_theta=0.99)
+    t0 = time.perf_counter()
+    s = wl_gen.OpStream(spec, seed=0, device=device)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    if s._cdf.device.type != "cuda" or s._mult <= 1:
+        raise AssertionError("the CDF is not on the card, or no scramble")
+    for _ in range(8):        # warm-up (first touch of the CDF's pages)
+        s._refill()
+    refills = n_ops // s.batch
+    keys = []
+    t0 = time.perf_counter()
+    for _ in range(refills):
+        s._refill()
+        keys.append(s._keys)
+    refill_s = time.perf_counter() - t0
+    # the scramble is a bijection taking rank 0 to key `_offset`
+    hot = int(np.count_nonzero(np.concatenate(keys) == s._offset))
+    t0 = time.perf_counter()
+    for _ in range(refills):
+        wl_gen._sample_batch(s._gen, s._cdf, s._mix_cdf, ZIPF_KEYS,
+                             spec.value_size, s._vmin, s._vmax, s.batch)
+    torch.cuda.synchronize()
+    device_s = time.perf_counter() - t0
+    h = float(np.sum(np.arange(1, ZIPF_KEYS + 1, dtype=np.float64)
+                     ** -0.99))
+    share, want = hot / (refills * s.batch), 1.0 / h
+    out = {"keys": ZIPF_KEYS, "cdf_bytes": s._cdf.numel() * 4,
+           "build_s": build_s, "batch": s.batch,
+           "ops_per_s": refills * s.batch / refill_s,
+           "ops_per_s_without_copy": refills * s.batch / device_s,
+           "rank1_share": share, "one_over_h": want}
+    log("workload", f"12(a) {out}")
+    if abs(share / want - 1) > 0.05:
+        raise AssertionError(f"rank-1 share {share} not within 5 % of "
+                             f"1/H = {want}")
+    # the transform on the card against the plain one on the CPU
+    gen = torch.Generator(device=device).manual_seed(1)
+    draws = [torch.rand(n_ops, generator=gen, device=device)
+             for _ in range(3)]
+    mix = s._mix_cdf
+    card = wl_gen.sample_transform(draws[0], draws[1], None, draws[2],
+                                   s._cdf, mix, ZIPF_KEYS, 4096)
+    host = wl_gen.sample_transform(*(d.cpu() for d in draws[:2]), None,
+                                   draws[2].cpu(), s._cdf.cpu(), mix.cpu(),
+                                   ZIPF_KEYS, 4096)
+    for name, a, b in zip(("ranks", "ops", "sizes"), card, host):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError(f"card and CPU {name} differ: "
+                                 f"{int((a.cpu() != b).sum())} of {n_ops}")
+    torch.testing.assert_close(card[3].cpu(), host[3], rtol=1e-6, atol=1e-7)
+    out["gaps_max_abs_diff"] = float((card[3].cpu() - host[3]).abs().max())
+    out["gaps_bit_equal_share"] = float(
+        (card[3].cpu() == host[3]).double().mean())
+    log("workload", f"12(a) card transform == CPU transform on {n_ops} "
+        f"draws (ranks, ops, sizes exact; gaps max |diff| "
+        f"{out['gaps_max_abs_diff']:.3g}, bit-equal share "
+        f"{out['gaps_bit_equal_share']:.4f})")
+    return out
+
+
+def fig8_quick(**cfg_kw) -> dict:
+    """12(b): the four Fig. 8 arms at the quick configuration and the
+    three claim ratios, each held to its envelope.  `cfg_kw` goes to
+    every arm's ExperimentConfig (the card run passes none)."""
+    log("workload", "12(b) Fig. 8 at the reference bench's --quick "
+        "configuration (1000 keys, 16 clients, 0.5 s warm-up, 3 s "
+        "measured), a cut of the full one (5000 keys, 32 clients, 15 s) "
+        "made for the script's time")
+    spec = WorkloadSpec(**QUICK_SPEC)
+    arms = {}
+    for name, run, kw in (
+            ("spinnaker_strong", run_spinnaker_workload,
+             {"consistent_reads": True}),
+            ("spinnaker_timeline", run_spinnaker_workload,
+             {"consistent_reads": False, "monotonic": True}),
+            ("cassandra_quorum", run_cassandra_workload, {"quorum": True}),
+            ("cassandra_eventual", run_cassandra_workload,
+             {"quorum": False})):
+        cfg = ExperimentConfig(seed=0, **QUICK_CFG, **cfg_kw)
+        t0 = time.perf_counter()
+        with refill_clock() as clock:
+            r = run(spec, cfg, **kw)
+        host_s = time.perf_counter() - t0
+        arms[name] = r
+        log("workload", f"  {name}: reads p50={r['reads']['p50_ms']:.4f} "
+            f"p99={r['reads']['p99_ms']:.4f} ms, writes "
+            f"p50={r['writes']['p50_ms']:.4f} p99={r['writes']['p99_ms']:.4f}"
+            f" ms, throughput {r['throughput']:.1f} ops/s; host {host_s:.2f}"
+            f" s, {r['total_ops']} sim ops, "
+            f"{r['total_ops'] / host_s:.1f} sim ops per host s, "
+            f"refills {clock['refills']} in {clock['refill_s']:.4f} s")
+        r["host_s"], r["refill"] = host_s, dict(clock)
+    sp, cq = arms["spinnaker_strong"], arms["cassandra_quorum"]
+    ce = arms["cassandra_eventual"]
+    claims = {
+        "read_vs_quorum_ratio": sp["reads"]["p50_ms"]
+        / max(cq["reads"]["p50_ms"], 1e-9),
+        "write_p50_ratio": sp["writes"]["p50_ms"]
+        / max(ce["writes"]["p50_ms"], 1e-9),
+        "throughput_ratio": sp["throughput"] / max(ce["throughput"], 1e-9)}
+    log("workload", f"12(b) claim ratios {claims}; envelope "
+        f"{CLAIM_TARGETS}")
+    tg = CLAIM_TARGETS
+    if not (claims["read_vs_quorum_ratio"] <= tg["read_vs_quorum_ratio_max"]
+            and claims["write_p50_ratio"] <= tg["write_p50_ratio_max"]
+            and claims["throughput_ratio"] >= tg["throughput_ratio_min"]):
+        raise AssertionError(f"claim ratios outside the envelope: {claims}")
+    return {"claims": claims, "arms": arms}
+
+
+def fig9_quick(**cfg_kw) -> dict:
+    """12(c): Fig. 9 at --quick (the bench's run_failover: seed 1, 8 s, the
+    leader of range 0 killed at 2 s, restarted at 6 s, strong reads):
+    writes must resume with no operator."""
+    cfg = ExperimentConfig(**{**QUICK_CFG, "seed": 1, "duration": 8.0,
+                              "window": 0.5, **cfg_kw})
+    t_kill, t_back = 2.0, cfg.duration * 0.75
+    t0 = time.perf_counter()
+    with refill_clock() as clock:
+        r = run_spinnaker_workload(
+            WorkloadSpec(**QUICK_SPEC), cfg, consistent_reads=True,
+            schedule=LEADER_KILL.format(t_kill=t_kill, t_back=t_back))
+    host_s = time.perf_counter() - t0
+    post = [w for w in r["timeline"]["write"] if w["t_start"] > t_kill]
+    resumed = [w for w in post if w["throughput"] > 0]
+    out = {"fault_events": r["fault_events"],
+           "writes_resumed": bool(resumed),
+           "recovery_window_start_s_after_kill":
+               resumed[0]["t_start"] - t_kill if resumed else None,
+           "post_kill_peak_write_tput": max(
+               (w["throughput"] for w in post), default=0.0),
+           "write_tput_by_window": [w["throughput"]
+                                    for w in r["timeline"]["write"]],
+           "host_s": host_s, "total_ops": r["total_ops"],
+           "refill": dict(clock)}
+    log("workload", f"12(c) Fig. 9 --quick: {out}")
+    if not resumed:
+        raise AssertionError("writes did not resume after the leader kill")
+    return out
+
+
+def workload_path(device) -> dict:
+    """Phase 12 (a)-(c)."""
+    return {"generator": generator_at_scale(device), "fig8": fig8_quick(),
+            "fig9": fig9_quick()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available", file=sys.stderr)
@@ -2103,6 +2322,18 @@ def main() -> int:
                                          "flash_attention.wgmma",
                                          "flash_attention.fma"))
     log("moe", f"phase 11 took {time.perf_counter() - t0:.1f} s: {moe}")
+    free()
+
+    # -- phase 12: the §9 workload engine, which launches no kernel ---------
+    t0 = time.perf_counter()
+    zero_launches()
+    workload = workload_path(device)
+    paths["workload"] = read_launches("workload", ())
+    if any(paths["workload"].values()):
+        raise AssertionError("a kernel was launched on the workload path")
+    log("workload", f"phase 12 took {time.perf_counter() - t0:.1f} s: "
+        f"claims {workload['fig8']['claims']}, writes resumed "
+        f"{workload['fig9']['writes_resumed']}")
     free()
     launches = {k: sum(p[k] for p in paths.values())
                 for k in paths["smollm"]}

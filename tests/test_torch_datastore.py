@@ -20,6 +20,10 @@ VERBATIM = [
     "obs/journal.py", "obs/events.py", "obs/metrics.py", "obs/profile.py",
     "obs/trace.py", "obs/watchdog.py", "obs/__init__.py",
     "workload/metrics.py", "ft/manager.py",
+    "workload/scenario.py", "workload/drivers.py",
+    "baselines/__init__.py", "baselines/cassandra.py",
+    "chaos/schedule.py", "chaos/linearizability.py", "chaos/availability.py",
+    "chaos/mutations.py", "chaos/__init__.py",
 ]
 
 

@@ -19,6 +19,10 @@ from repro_torch.models import (decode_step, forward, init_cache, init_params,
 from repro_torch.models.model import init_quantized_params
 from repro_torch.serve.engine import Request, ServeConfig, ServingEngine
 from repro_torch.train.step import loss_and_grads
+from repro_torch.workload.generators import OpStream, WorkloadSpec
+from torch_stream_checks import (STREAM_CHECKS, TRANSFORM_CASES,
+                                 assert_transforms_equal, batch_draws,
+                                 transform_on)
 
 pytestmark = pytest.mark.gpu
 
@@ -445,3 +449,31 @@ def test_kernels_refuse_a_gradient_on_the_card(cuda):
         loss_and_grads(params, {"tokens": tokens, "labels": tokens}, cfg)
     assert fa_ops.launches == before
 
+
+# ---------------------------------------------------------------------------
+# the workload generator on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("check", STREAM_CHECKS, ids=lambda f: f.__name__)
+def test_port_stream_statistics_on_the_card(cuda, check):
+    """The reference's stream tests on the card's stream: deterministic
+    from the seed; mix, zipf, latest, sizes and gap statistics."""
+    check(cuda)
+
+
+@pytest.mark.parametrize("case", TRANSFORM_CASES)
+def test_card_transform_equals_the_cpus_on_the_same_uniforms(cuda, case):
+    out, draws, (cdf, mix, n) = batch_draws(case, cuda, seed=4)
+    assert all(t.device.type == "cuda" for t in out)
+    assert_transforms_equal([t.cpu() for t in out],
+                            transform_on("cpu", draws, cdf, mix, n))
+
+
+def test_default_stream_samples_on_the_card(cuda):
+    s = OpStream(WorkloadSpec(num_keys=1000))
+    assert s.device.type == "cuda" and s._cdf.device.type == "cuda"
+    assert s._mix_cdf.device.type == "cuda"
+    assert s._gen.device.type == "cuda"
+    s.next_op()
+    assert s.sampled == s.batch
