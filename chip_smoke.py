@@ -103,7 +103,23 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      ratios held to the envelope (read/quorum <= 1.05, write p50 <= 1.30,
      throughput >= 0.95); (c) Fig. 9 at --quick: range 0's leader killed
      at 2 s, restarted at 6 s of 8; writes must resume, and the recovery
-     window is printed.
+     window is printed;
+ 13. multi-device `repro_torch.dist` (`[dist]` lines): one process per
+     card (torch.multiprocessing.spawn, NCCL, a file rendezvous under
+     build/dist_phase; a rank's failure fails the script), on
+     torch.cuda.device_count() ranks, a world of 1 on one card: (a)
+     SmolLM-360M's phase 9 step, 3 steps under a (world, 1) data x model
+     MeshContext against 3 with no context from the same start (losses
+     within 1e-5), p50 step time of each, and one profiled step's NCCL
+     all-reduce device time; (b) Phi-3.5-MoE at full width cut to 2
+     layers, f32, capacity factor 8 (no drops), attention through flash
+     fma, on an EP mesh of every rank: a forward of 2 rows a rank x 64
+     tokens with the all-to-all path against the gspmd path (1e-5) and
+     one moe_ffn gradient through the all-to-alls (every leaf finite);
+     (c) the hd-sharded decode called at tp = world on SmolLM-360M's
+     full-context step (bf16, 8 x 2048 at 2000) against the eager decode
+     (TOL["bf16"]); (d) GPipe with one stage a rank (the reference
+     test's stages) against the stages in sequence (1e-5).
 Phase 3 also checks, and phase 8 times, phase 11's attention shapes:
 Phi-3.5-MoE's 32/8 heads at hd 128 (bf16 decode over 8 x 512 cached
 tokens, the bf16 2048-token prefill, and the f32 shapes of 11(a)) and
@@ -114,13 +130,15 @@ steps timed, one profiled (device busy, idle share, decode_attention's
 share), the first step's logits against the eager path.
 Phases 4-5, 6 and 7 are the three serving main paths, phase 9 the
 training path, phase 10 the store path (commit, restore, serve with
-refresh, resume), phase 11 the moe path, phase 12 the workload path.
-The launch counters are zeroed just before each and read just after it;
-every kernel variant of a serving path must have launched there,
-decode_attention on the store path's engine, decode and both flash
-variants on the moe path, and none on the training path (the kernels
-are forward-only, so training takes the eager attention path, as the
-reference's does) or on the workload path (no model runs there).  The
+refresh, resume), phase 11 the moe path, phase 12 the workload path,
+phase 13 the dist path.  The launch counters are zeroed just before each
+and read just after it (phase 13: in each rank's process, summed by the
+parent); every kernel variant of a serving path must have launched
+there, decode_attention on the store path's engine, decode and both
+flash variants on the moe path, flash fma on the dist path, and none on
+the training path (the kernels are forward-only, so training takes the
+eager attention path, as the reference's does) or on the workload path
+(no model runs there).  The
 JSON line's `launches` is a kernel's sum over the paths (one ssd_scan
 call of either variant is three launches).  The last two lines are a
 JSON object of per-kernel numbers, with a `variants` entry per kernel,
@@ -136,6 +154,7 @@ import json
 import os
 import pstats
 import resource
+import shutil
 import subprocess
 import sys
 import time
@@ -143,7 +162,10 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
 import torch.nn.functional as F
+from torch.distributed.device_mesh import init_device_mesh
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
@@ -155,6 +177,8 @@ from repro_torch.convert import (params_from_numpy,  # noqa: E402
                                  train_state_to_numpy)
 from repro_torch.data.pipeline import DataConfig, TokenStream  # noqa: E402
 from repro_torch.dist.compression import quantize_codes  # noqa: E402
+from repro_torch.dist.pipeline import gpipe  # noqa: E402
+from repro_torch.dist.sharding import MeshContext, ShardingPolicy  # noqa
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as da_ops  # noqa: E402
 from repro_torch.kernels.decode_attention.ref import \
@@ -582,9 +606,9 @@ def zero_launches() -> None:
     ssd_ops.zero_launches()
 
 
-def read_launches(path: str, needed) -> dict:
-    """Launches per kernel variant ("flash_attention.wgmma", ...) since
-    the last zero_launches; every variant in `needed` must have run."""
+def launch_counts() -> dict:
+    """This process's launches per kernel variant ("flash_attention.wgmma",
+    ...) since the last zero_launches."""
     got = {}
     for name, mod in (("decode_attention", da_ops),
                       ("flash_attention", fa_ops), ("ssd_scan", ssd_ops)):
@@ -592,6 +616,14 @@ def read_launches(path: str, needed) -> dict:
             got[f"{name}.{var}"] = n
         if sum(mod.launches_by_variant.values()) != mod.launches:
             raise AssertionError(f"{name}: variant counts do not sum")
+    return got
+
+
+def read_launches(path: str, needed, got=None) -> dict:
+    """Launches per kernel variant on a path: this process's since the
+    last zero_launches, or `got` (counted by phase 13's ranks); every
+    variant in `needed` must have run."""
+    got = launch_counts() if got is None else got
     log(path, f"launches on this path: {got}")
     for name in needed:
         if got[name] <= 0:
@@ -1563,8 +1595,8 @@ def recorded_routes():
     K+1 probabilities, in call (layer) order."""
     route, calls = moe_mod._route, []
 
-    def spy(params, xf, cfg):
-        out = route(params, xf, cfg)
+    def spy(params, xf, cfg, group=None):
+        out = route(params, xf, cfg, group)
         probs = torch.softmax(xf.float() @ params["router"].float(), -1)
         top = torch.sort(probs, dim=-1, descending=True,
                          stable=True).values
@@ -1587,8 +1619,8 @@ def pinned_routes(recorded):
     whose own route differed from the recorded one."""
     route, flips = moe_mod._route, []
 
-    def pinned(params, xf, cfg):
-        _, ids, aux = route(params, xf, cfg)
+    def pinned(params, xf, cfg, group=None):
+        _, ids, aux = route(params, xf, cfg, group)
         want = recorded[len(flips)][0]
         flips.append(int((ids != want).any(-1).sum()))
         probs = torch.softmax(xf.float() @ params["router"].float(), -1)
@@ -2200,6 +2232,227 @@ def workload_path(device) -> dict:
             "fig9": fig9_quick()}
 
 
+# ---------------------------------------------------------------------------
+# phase 13: multi-device dist over NCCL, one rank per card
+# ---------------------------------------------------------------------------
+
+DIST_DIR = Path(__file__).resolve().parent / "build" / "dist_phase"
+# the reference's limits: tests/test_elastic_and_microbatch.py:115
+# (losses), tests/test_quant_and_dist.py:99 (moe), tests/test_pipeline.py
+DIST_TOL = 1e-5
+
+
+def dist_train(world, device) -> dict:
+    """13(a): SmolLM-360M's phase 9 step (bf16, remat full, AdamW), 4 x
+    2048 tokens a global step, 3 steps with no context and 3 from the same
+    start under a (world, 1) data x model context; one more step
+    profiled for the grad all-reduce's device time."""
+    cfg = get_config("smollm-360m").scaled(attn_impl="xla",
+                                           remat_policy="full")
+    tcfg = TrainConfig(optimizer=OptimizerConfig(lr=3e-4, weight_decay=0.1,
+                                                 grad_clip=1.0))
+    B, S = 4, 2048
+    stream = TokenStream(DataConfig(vocab_size=cfg.vocab_size, seq_len=S,
+                                    global_batch=B, seed=0,
+                                    mixture_docs=True), 0)
+    batches = [stream.batch_at(s) for s in range(3)]
+    start = init_train_state(cfg, tcfg, seed=0, device=device)
+    _, plain, _, plain_secs = train_steps(cfg, tcfg, clone(start), batches)
+    mesh = init_device_mesh(device.type, (world, 1),
+                            mesh_dim_names=("data", "model"))
+    with MeshContext(mesh, cfg, ShardingPolicy.for_mesh(mesh)):
+        state, dp, _, dp_secs = train_steps(cfg, tcfg, clone(start), batches)
+        wall_ms, busy_ms, kernels, _ = profile_call(
+            lambda: make_train_step(cfg, tcfg)(state, batches[0]))
+    if not np.allclose(dp, plain, rtol=DIST_TOL, atol=0):
+        raise AssertionError(f"13(a) losses under the context {dp} != "
+                             f"without {plain}")
+    nccl = [(k, ms, n) for k, ms, n in kernels if "nccl" in k.lower()]
+    return dict(losses=dp, losses_plain=plain,
+                p50_ms=1e3 * float(np.median(dp_secs[1:])),
+                p50_ms_plain=1e3 * float(np.median(plain_secs[1:])),
+                profiled_wall_ms=wall_ms, busy_ms=busy_ms,
+                allreduce_ms=sum(ms for _, ms, _ in nccl),
+                allreduce_launches=sum(n for _, _, n in nccl),
+                nccl_kernels=sorted({kernel_name(k) for k, _, _ in nccl}))
+
+
+def dist_moe(world, device) -> dict:
+    """13(b): Phi-3.5-MoE at full width cut to 2 layers, f32, on an EP
+    mesh of every rank, attention through flash fma: a forward of 2 rows
+    a rank x 64 tokens with moe_impl "shard_map" against "gspmd", and one
+    moe_ffn gradient through the all-to-alls.  Capacity factor 8, as the
+    reference's test of the two (tests/test_quant_and_dist.py): no token
+    drops, so the EP path's per-rank capacity routes as the whole
+    batch's."""
+    cfg = get_config("phi3.5-moe-42b-a6.6b").scaled(
+        num_layers=2, dtype="float32", attn_impl="pallas",
+        capacity_factor=8.0)
+    params = init_params(cfg, seed=0, device=device)
+    mesh = init_device_mesh(device.type, (world, 1),
+                            mesh_dim_names=("data", "model"))
+    ctx = MeshContext(mesh, cfg, ShardingPolicy.for_mesh(mesh))
+    gen = torch.Generator(device=device).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (2 * world, 64),
+                           generator=gen, device=device)
+    batch = ctx.local_batch({"tokens": tokens})
+    with ctx:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sm, _, _ = forward(params, batch, cfg.scaled(moe_impl="shard_map"))
+        torch.cuda.synchronize()
+        sm_s = time.perf_counter() - t0
+        gs, _, _ = forward(params, batch, cfg.scaled(moe_impl="gspmd"))
+        err = float((sm - gs).abs().max())
+        moe = {k: v.detach().requires_grad_(True) for k, v in
+               model_mod._layer_slice(params["layers"], 0)["moe"].items()}
+        x = torch.randn((2, 64, cfg.d_model), generator=gen, device=device)
+        with torch.enable_grad():
+            y, _ = moe_mod.moe_ffn(moe, x, cfg.scaled(moe_impl="shard_map"))
+            grads = torch.autograd.grad(y.sum(), list(moe.values()))
+    finite = all(bool(torch.isfinite(g).all()) for g in grads)
+    if not (err <= DIST_TOL and finite):
+        raise AssertionError(f"13(b) shard_map vs gspmd max |diff| {err} "
+                             f"(limit {DIST_TOL}), grads finite {finite}")
+    return dict(max_abs_err=err, max_abs_logit=float(gs.abs().max()),
+                grads_finite=finite, forward_s=sm_s,
+                grad_leaves=sorted(moe))
+
+
+def dist_decode(world, device) -> dict:
+    """13(c): `_decode_attention_shard_map` at tp = world (the gate never
+    fires at tp 1) at SmolLM-360M's full-context step, bf16, 8 slots x
+    2048 at position 2000, against the eager decode; the output through
+    wo and this rank's hd slice of the caches."""
+    cfg = get_config("smollm-360m").scaled(attn_impl="xla")
+    H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    gen = torch.Generator(device=device).manual_seed(2)
+    bf16 = torch.bfloat16
+    p = layers_mod.init_attention(gen, cfg, bf16, device)
+    B, T, pos = 8, 2048, torch.tensor(2000, dtype=torch.int32, device=device)
+    x = randn(gen, (B, 1, cfg.d_model), bf16, device)
+    kc, vc = (randn(gen, (B, Hkv, T, hd), bf16, device) for _ in range(2))
+    mesh = init_device_mesh(device.type, (1, world),
+                            mesh_dim_names=("data", "model"))
+    ctx = MeshContext(mesh, cfg, ShardingPolicy.for_mesh(mesh))
+    hl = hd // world
+    lo = ctx.index("model") * hl
+    ks, vs = (c[..., lo:lo + hl].clone() for c in (kc, vc))
+    # attention_decode's projections and rotary embedding
+    posb = pos.reshape(1, 1).expand(B, 1)
+    q = layers_mod.apply_rope(layers_mod.linear(p["wq"], x).reshape(
+        B, 1, H, hd), posb, cfg.rope_theta).reshape(B, 1, Hkv, H // Hkv, hd)
+    k = layers_mod.apply_rope(layers_mod.linear(p["wk"], x).reshape(
+        B, 1, Hkv, hd), posb, cfg.rope_theta)
+    v = layers_mod.linear(p["wv"], x).reshape(B, 1, Hkv, hd)
+    with ctx:
+        o, ks, vs = layers_mod._decode_attention_shard_map(q, k, v, ks, vs,
+                                                           pos, ctx)
+    out = layers_mod.linear(p["wo"], o)
+    ref, kc, vc = layers_mod.attention_decode(p, x, cfg, kc, vc, pos)
+    err = float((out.float() - ref.float()).abs().max())
+    cache_equal = bool(torch.equal(ks, kc[..., lo:lo + hl])
+                       and torch.equal(vs, vc[..., lo:lo + hl]))
+    if not (err <= TOL["bf16"] and cache_equal):
+        raise AssertionError(f"13(c) hd-sharded decode max |diff| {err} "
+                             f"(limit {TOL['bf16']}), caches equal "
+                             f"{cache_equal}")
+    return dict(max_abs_err=err, max_abs_ref=float(ref.abs().max()),
+                cache_slice_equal=cache_equal, tp=world)
+
+
+def dist_gpipe(world, device) -> dict:
+    """13(d): tests/test_pipeline.py's stages (D 32, 2 tanh layers a
+    stage, 6 microbatches of 3) with `world` stages, against the stages
+    in sequence."""
+    rng = np.random.default_rng(0)
+    Ws = torch.from_numpy((rng.standard_normal((world, 2, 32, 32)) * 0.2
+                           ).astype(np.float32)).to(device)
+    x = torch.from_numpy(rng.standard_normal((6, 3, 32)).astype(
+        np.float32)).to(device)
+
+    def stage_fn(W, v):
+        for i in range(W.shape[0]):
+            v = torch.tanh(v @ W[i])
+        return v
+    mesh = init_device_mesh(device.type, (world, 1),
+                            mesh_dim_names=("pipe", "model"))
+    y = gpipe(stage_fn, mesh, axis="pipe")(Ws, x)
+    ref = x
+    for st in range(world):
+        ref = stage_fn(Ws[st], ref)
+    err = float((y - ref).abs().max())
+    if not err <= DIST_TOL:
+        raise AssertionError(f"13(d) gpipe max |diff| {err} (limit "
+                             f"{DIST_TOL})")
+    return dict(max_abs_err=err, stages=world)
+
+
+def dist_rank(rank: int, world: int) -> None:
+    """One rank of phase 13 on card `rank`, in its own process: NCCL
+    through a file rendezvous in DIST_DIR, the counters zeroed before
+    (a)-(d) and written with the results to DIST_DIR/<rank>.pt."""
+    device = torch.device("cuda", rank)
+    torch.cuda.set_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_grad_enabled(False)
+    dist.init_process_group("nccl", init_method=f"file://{DIST_DIR}/rdzv",
+                            rank=rank, world_size=world, device_id=device)
+    try:
+        zero_launches()
+        out = {}
+        for part, fn in (("train", dist_train), ("moe", dist_moe),
+                         ("decode", dist_decode), ("gpipe", dist_gpipe)):
+            t0 = time.perf_counter()
+            out[part] = fn(world, device)
+            out[part]["wall_s"] = time.perf_counter() - t0
+            free()
+        out["launches"] = launch_counts()
+        torch.save(out, DIST_DIR / f"{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def dist_path(device) -> tuple[dict, dict]:
+    """Phase 13: `dist_rank` on torch.cuda.device_count() ranks, one card
+    each.  A rank's failure fails the script.  Returns rank 0's results
+    and the launches summed over the ranks."""
+    world = torch.cuda.device_count()
+    free()
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    DIST_DIR.mkdir(parents=True)
+    mp.spawn(dist_rank, args=(world,), nprocs=world, join=True)
+    outs = [torch.load(DIST_DIR / f"{r}.pt") for r in range(world)]
+    launches = {k: sum(o["launches"][k] for o in outs)
+                for k in outs[0]["launches"]}
+    res = outs[0]
+    a, b, c, d = res["train"], res["moe"], res["decode"], res["gpipe"]
+    log("dist", f"world {world} (NCCL, one rank per card)")
+    log("dist", f"(a) smollm-360m DP step, 4 x 2048 tokens: losses "
+        f"{a['losses']} under the context, {a['losses_plain']} without "
+        f"(rtol {DIST_TOL}); p50 step {a['p50_ms']:.3f} ms with the "
+        f"context, {a['p50_ms_plain']:.3f} ms without; one profiled step "
+        f"{a['profiled_wall_ms']:.3f} ms wall, {a['busy_ms']:.3f} ms "
+        f"device busy, grad all-reduce {a['allreduce_ms']:.5f} device ms "
+        f"in {a['allreduce_launches']} NCCL kernels {a['nccl_kernels']}")
+    log("dist", f"(b) phi3.5-moe 2 layers f32, EP over {world}: shard_map "
+        f"vs gspmd max |diff| {b['max_abs_err']:.3g} (limit {DIST_TOL}, "
+        f"max |logit| {b['max_abs_logit']:.3g}); moe_ffn grads finite "
+        f"{b['grads_finite']} ({b['grad_leaves']}); forward "
+        f"{b['forward_s']:.3f} s")
+    log("dist", f"(c) hd-sharded decode, tp {c['tp']}, smollm-360m 8 x "
+        f"2048 at 2000, bf16: max |diff| {c['max_abs_err']:.3g} vs eager "
+        f"(limit {TOL['bf16']}, max |ref| {c['max_abs_ref']:.3g}); cache "
+        f"slice equal {c['cache_slice_equal']}")
+    log("dist", f"(d) gpipe, {d['stages']} stages x 6 microbatches: max "
+        f"|diff| {d['max_abs_err']:.3g} vs the stages in sequence")
+    log("dist", "wall s per part (rank 0): " + ", ".join(
+        f"{k} {res[k]['wall_s']:.1f}" for k in ("train", "moe", "decode",
+                                                  "gpipe")))
+    return res, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available", file=sys.stderr)
@@ -2335,6 +2588,13 @@ def main() -> int:
         f"claims {workload['fig8']['claims']}, writes resumed "
         f"{workload['fig9']['writes_resumed']}")
     free()
+
+    # -- phase 13: multi-device dist, one NCCL rank per card ------------------
+    t0 = time.perf_counter()
+    _dist_res, dist_launches = dist_path(device)
+    paths["dist"] = read_launches("dist", ("flash_attention.fma",),
+                                  dist_launches)
+    log("dist", f"phase 13 took {time.perf_counter() - t0:.1f} s")
     launches = {k: sum(p[k] for p in paths.values())
                 for k in paths["smollm"]}
     log("timing", f"main-path launches per path: {paths}")

@@ -1,1 +1,2 @@
-"""Launch helpers; mirrors `repro.launch` (this slice: real batches)."""
+"""Launch helpers; mirrors `repro.launch`: real input batches (`shapes`)
+and the device meshes (`mesh`)."""

@@ -9,7 +9,13 @@ kernels (`repro_torch.kernels`, forward-only); "xla" is the eager path,
 the counterpart of the reference's XLA branch, "xla_chunked" its online
 softmax over KV chunks and "xla_bhsd" its head-major layout.  Decode takes
 the eager path for every value but "pallas", as the reference's does.
-Single device: no sharding hooks.
+
+Sharding is applied from outside, by `repro_torch.dist`: `pshard` is the
+pluggable activation hook that `MeshContext` installs (the identity when
+none is installed, and on a plain tensor, which inside a context already
+holds this rank's rows), and `decode_attn_impl="shard_map"` decodes with
+hd-sharded K/V and an all-reduce of the partial scores inside a context
+whose TP size divides hd but not the KV heads.
 """
 
 from __future__ import annotations
@@ -17,10 +23,31 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from .config import ModelConfig
 from .quant import wcast
+
+# ---------------------------------------------------------------------------
+# activation sharding hook (installed by repro_torch.dist.sharding)
+# ---------------------------------------------------------------------------
+
+_SHARD_HOOK = None
+
+
+def install_shard_hook(fn) -> None:
+    global _SHARD_HOOK
+    _SHARD_HOOK = fn
+
+
+def pshard(x: torch.Tensor, kind: str) -> torch.Tensor:
+    """Constrain activation sharding; `kind` names a logical layout
+    ('act_btd', 'act_btf', 'moe_ecd', ...) resolved by the dist context."""
+    if _SHARD_HOOK is None:
+        return x
+    return _SHARD_HOOK(x, kind)
+
 
 # ---------------------------------------------------------------------------
 # init helpers
@@ -127,6 +154,8 @@ def attention(params, x: torch.Tensor, cfg: ModelConfig,
     v = linear(params["wv"], x).reshape(B, S, Hkv, hd)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
+    q = pshard(q, "act_bshrd")
+    k = pshard(k, "act_bthd")
 
     if cfg.attn_impl == "pallas":
         from ..kernels.flash_attention import ops as fa_ops
@@ -138,9 +167,10 @@ def attention(params, x: torch.Tensor, cfg: ModelConfig,
         o = o.reshape(B, S, H * hd)
     elif cfg.attn_impl == "xla_bhsd":
         # head-major: K/V repeated to H heads, so the scores carry a q-head
-        # axis (the reference's sharding layout; one device here)
-        kr = k.repeat_interleave(rep, dim=2)
-        vr = v.repeat_interleave(rep, dim=2)
+        # axis (the reference's sharding layout)
+        q = pshard(q, "act_q_bshd")
+        kr = pshard(k.repeat_interleave(rep, dim=2), "act_q_bshd")
+        vr = pshard(v.repeat_interleave(rep, dim=2), "act_q_bshd")
         scale = 1.0 / math.sqrt(hd)
         s = torch.einsum("bshd,bthd->bhst", q, kr) * scale
         mask = _causal_mask(positions, window)
@@ -156,6 +186,7 @@ def attention(params, x: torch.Tensor, cfg: ModelConfig,
                                     float("-inf"))
         probs = torch.softmax(scores.float(), dim=-1).to(x.dtype)
         o = torch.einsum("bhrst,bthd->bshrd", probs, v).reshape(B, S, H * hd)
+    o = pshard(o, "act_bshd_flat")
     return linear(params["wo"], o)
 
 
@@ -225,6 +256,11 @@ def attention_decode(params, x: torch.Tensor, cfg: ModelConfig,
     index, shared by every batch row.  The new K/V row is written into the
     caches in place at min(pos, T-1) (the clamp of the reference's
     dynamic_update_slice).  Returns (out (B,1,D), k_cache, v_cache).
+
+    With `decode_attn_impl="shard_map"`, inside a `MeshContext` whose TP
+    size tp divides hd but not Hkv (the reference's gate), x is this
+    rank's rows and the caches are this rank's hd slices (B,Hkv,T,hd/tp):
+    see `_decode_attention_shard_map`.
     """
     _check_attn_impl(cfg)
     B, _, D = x.shape
@@ -237,6 +273,19 @@ def attention_decode(params, x: torch.Tensor, cfg: ModelConfig,
     posb = pos.reshape(1, 1).expand(B, 1)
     q = apply_rope(q, posb, cfg.rope_theta)
     k = apply_rope(k, posb, cfg.rope_theta)
+
+    if cfg.decode_attn_impl == "shard_map":
+        from ..dist.context import current_ctx
+        ctx = current_ctx()
+        tp = ctx.size(ctx.pol.tp_axis) if ctx is not None else 0
+        # only when KV heads cannot shard the model axis; head-shardable
+        # archs decode collective-free.  (The reference also asks that the
+        # global batch split over DP: B rows a rank are such a split.)
+        if ctx is not None and Hkv % tp != 0 and hd % tp == 0:
+            o, k_cache, v_cache = _decode_attention_shard_map(
+                q.reshape(B, 1, Hkv, rep, hd), k, v, k_cache, v_cache, pos,
+                ctx, window=window)
+            return linear(params["wo"], o), k_cache, v_cache
 
     idx = torch.clamp(pos, max=T - 1).reshape(1).long()
     k_cache.index_copy_(2, idx, k.transpose(1, 2).to(k_cache.dtype))
@@ -262,6 +311,50 @@ def attention_decode(params, x: torch.Tensor, cfg: ModelConfig,
     return linear(params["wo"], o), k_cache, v_cache
 
 
+def _decode_attention_shard_map(q, k_new, v_new, k_cache, v_cache, pos, ctx,
+                                *, window: int = 0):
+    """Decode attention over head_dim-sharded K/V, the collectives written
+    by hand (eager, as the reference's shard_map body): each TP rank keeps
+    an hd slice of the cache, and the hd contraction becomes an all-reduce
+    of the (B,Hkv,rep,1,T) partial scores while the cache stays put.
+
+    q: (B,1,Hkv,rep,hd); k_new/v_new: (B,1,Hkv,hd), this rank's rows at
+    full hd; caches: (B,Hkv,T,hd/tp), this rank's slice (TP position i
+    holds dims [i*hd/tp, (i+1)*hd/tp)), its new K/V slice written in place
+    at min(pos, T-1).  Returns (o (B,1,H*hd), gathered over TP before
+    `wo`; k_cache, v_cache).
+    """
+    group = ctx.group(ctx.pol.tp_axis)
+    tp = ctx.size(ctx.pol.tp_axis)
+    B, _, Hkv, rep, hd = q.shape
+    T = k_cache.shape[2]
+    hl = hd // tp
+    if k_cache.shape[-1] != hl or v_cache.shape[-1] != hl:
+        raise ValueError(f"hd-sharded decode: caches hold {k_cache.shape[-1]}"
+                         f" of hd {hd}, need this rank's {hl} (tp {tp})")
+    lo = ctx.index(ctx.pol.tp_axis) * hl
+    scale = 1.0 / math.sqrt(hd)
+    idx = torch.clamp(pos, max=T - 1).reshape(1).long()
+    k_cache.index_copy_(2, idx, k_new[..., lo:lo + hl].transpose(1, 2)
+                        .to(k_cache.dtype))
+    v_cache.index_copy_(2, idx, v_new[..., lo:lo + hl].transpose(1, 2)
+                        .to(v_cache.dtype))
+    s = torch.einsum("bshrd,bhtd->bhrst", q[..., lo:lo + hl],
+                     k_cache.to(q.dtype)) * scale
+    dist.all_reduce(s, group=group)                   # (B,Hkv,rep,1,T)
+    jj = torch.arange(T, device=q.device)
+    mask = jj <= pos
+    if window:
+        mask &= jj > pos - window
+    s = s.masked_fill(~mask, float("-inf"))
+    p = torch.softmax(s.float(), dim=-1).to(q.dtype)
+    o = torch.einsum("bhrst,bhtd->bshrd", p, v_cache.to(q.dtype)).contiguous()
+    parts = [torch.empty_like(o) for _ in range(tp)]
+    dist.all_gather(parts, o, group=group)
+    return (torch.cat(parts, dim=-1).reshape(B, 1, Hkv * rep * hd), k_cache,
+            v_cache)
+
+
 # ---------------------------------------------------------------------------
 # gated MLP (SwiGLU / GeGLU)
 # ---------------------------------------------------------------------------
@@ -281,4 +374,5 @@ def mlp(params, x: torch.Tensor, activation: str) -> torch.Tensor:
     # jax.nn.gelu defaults to the tanh approximation
     act = F.gelu(g, approximate="tanh") if activation == "geglu" \
         else F.silu(g)
-    return linear(params["w_down"], act * u)
+    h = pshard(act * u, "act_btf")
+    return linear(params["w_down"], h)

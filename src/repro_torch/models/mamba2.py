@@ -14,7 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from .config import ModelConfig
-from .layers import dense_init, init_rmsnorm, linear, rms_norm
+from .layers import dense_init, init_rmsnorm, linear, pshard, rms_norm
 
 
 def init_mamba2(gen, cfg: ModelConfig, dtype, device):
@@ -144,6 +144,7 @@ def mamba2_block(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     y = y + xs * params["D"][None, None, :, None].to(x.dtype)
     y = y.reshape(Bsz, S, Din)
     y = rms_norm(params["norm"], y * F.silu(z), cfg.norm_eps)
+    y = pshard(y, "act_btf")
     return linear(params["out_proj"], y)
 
 

@@ -18,14 +18,17 @@ import functools
 from typing import Any
 
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..device import resolve
+from ..dist.context import current_ctx
+from ..dist.sharding import psum
 from ..tree import tree_map
 from .config import ModelConfig
 from .layers import (attention, attention_decode, embed_init, init_attention,
-                     init_mlp, init_rmsnorm, mlp, rms_norm)
+                     init_mlp, init_rmsnorm, mlp, pshard, rms_norm)
 from .mamba2 import init_mamba2, init_ssm_cache, mamba2_block, mamba2_decode
 from .moe import init_moe, moe_ffn
 from .quant import quantize_tree
@@ -206,19 +209,21 @@ def forward(params: dict, batch: dict, cfg: ModelConfig):
 
     def body(h, lp, use_attn):
         if cfg.family in ("dense", "moe"):
-            h = h + attention(lp["attn"],
-                              rms_norm(lp["attn_norm"], h, cfg.norm_eps),
-                              cfg, positions)
+            a = attention(lp["attn"],
+                          rms_norm(lp["attn_norm"], h, cfg.norm_eps),
+                          cfg, positions)
+            h = pshard(h + a, "act_btd")
             hin = rms_norm(lp["mlp_norm"], h, cfg.norm_eps)
             if cfg.family == "moe":
                 m, aux = moe_ffn(lp["moe"], hin, cfg)
-                return h + m, aux
-            return h + mlp(lp["mlp"], hin, cfg.activation), 0.0
+            else:
+                m, aux = mlp(lp["mlp"], hin, cfg.activation), 0.0
+            return pshard(h + m, "act_btd"), aux
         h = h + mamba2_block(lp["mamba"], rms_norm(lp["norm"], h,
                                                    cfg.norm_eps), cfg)
         if use_attn:
             h = _shared_attn_block(cfg, h, params["shared_attn"], positions)
-        return h, 0.0
+        return pshard(h, "act_btd"), 0.0
 
     body = _remat(cfg, body)
     aux = 0.0
@@ -228,6 +233,7 @@ def forward(params: dict, batch: dict, cfg: ModelConfig):
         aux = aux + a
     h = rms_norm(params["final_norm"], h, cfg.norm_eps)
     logits = _unembed(params, cfg, h).to(DTYPES[cfg.logit_dtype])
+    logits = pshard(logits, "act_btv")
     return logits, aux, mask
 
 
@@ -235,14 +241,28 @@ def loss_fn(params: dict, batch: dict, cfg: ModelConfig):
     """Next-token cross entropy over f32 log-probabilities, weighted by
     `mask & (labels >= 0)` (VLM patch positions are masked out), plus the
     MoE router aux loss (0 for the other families).  Returns (loss,
-    {"ce", "aux", "tokens"})."""
+    {"ce", "aux", "tokens"}).
+
+    Inside a `MeshContext` with DP dims, `batch` is this rank's rows: the
+    weighted sum is divided by the token count summed over the DP group,
+    and the ce is summed over it (`psum`; the aux is global already), so
+    loss and metrics are the whole batch's on every rank, while the
+    gradient of this rank's loss is its share of the whole batch's (the
+    train step sums the shares)."""
+    ctx = current_ctx()
+    group = ctx.dp_group() if ctx is not None else None
     logits, aux, mask = forward(params, batch, cfg)
     labels = batch["labels"]
     lw = mask & (labels >= 0)
     logp = torch.log_softmax(logits.float(), dim=-1)
     ll = torch.gather(logp, -1, labels.clamp(min=0).long()[..., None])[..., 0]
-    denom = torch.clamp(lw.sum(), min=1).to(torch.int32)
+    count = lw.sum()
+    if group is not None:
+        dist.all_reduce(count, group=group)
+    denom = torch.clamp(count, min=1).to(torch.int32)
     ce = -torch.sum(ll * lw) / denom
+    if group is not None:
+        ce = psum(ce, group)
     loss = ce + aux
     return loss, {"ce": ce,
                   "aux": torch.as_tensor(aux, dtype=torch.float32,

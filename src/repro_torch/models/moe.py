@@ -7,19 +7,29 @@ batched per-expert GEMMs and added back to their tokens weighted by the
 router's gate.  Overflow tokens are dropped.  The router's softmax and
 the Switch load-balancing aux loss are f32.
 
-`moe_impl="shard_map"` (the reference's expert-parallel all-to-all)
-takes this path too, as the reference does when no mesh is installed:
-the port runs on one device.
+Inside a `repro_torch.dist.sharding.MeshContext` x is this rank's rows.
+`_moe_gspmd` then keeps the reference's whole-batch semantics with
+collectives over the DP group: capacity, positions within an expert and
+the aux loss are the global batch's, the experts run on this rank's
+tokens.  `moe_impl="shard_map"` is the reference's expert-parallel path
+(`_moe_shard_map`): local routing and capacity, an all-to-all of the
+expert blocks there and back, the local experts on (E_l, D, F_l) slices.
+It takes `_moe_gspmd` where the reference does: outside a context, when
+the experts or F do not tile the mesh, and for int8 weights.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
+import torch.distributed._functional_collectives as fc
 import torch.nn.functional as F
 
+from ..dist.context import current_ctx
+from ..dist.sharding import pmean, psum
 from .config import ModelConfig
-from .layers import dense_init, init_mlp, mlp
-from .quant import wcast
+from .layers import dense_init, init_mlp, mlp, pshard
+from .quant import is_quantized, wcast
 
 
 def init_moe(gen, cfg: ModelConfig, dtype, device="cpu"):
@@ -36,10 +46,13 @@ def init_moe(gen, cfg: ModelConfig, dtype, device="cpu"):
     return params
 
 
-def _route(params, xf: torch.Tensor, cfg: ModelConfig):
+def _route(params, xf: torch.Tensor, cfg: ModelConfig, group=None):
     """Router top-k + Switch-style load-balancing aux.  xf: (T, D).
     Returns (gate values (T, K) f32, renormalised; expert ids (T, K)
-    int64; aux 0-d f32)."""
+    int64; aux 0-d f32).  With a DP `group`, xf is this rank's share of
+    equal shares: the mean router probability P and the routed fraction f
+    are summed over the group before their product, so the aux is the
+    whole batch's."""
     E, K = cfg.num_experts, cfg.experts_per_token
     T = xf.shape[0]
     logits = xf.float() @ params["router"].float()
@@ -50,18 +63,36 @@ def _route(params, xf: torch.Tensor, cfg: ModelConfig):
                                        stable=True)
     gate_vals, expert_idx = gate_vals[:, :K], expert_idx[:, :K]
     gate_vals = gate_vals / torch.sum(gate_vals, dim=-1, keepdim=True)
-    me = torch.mean(probs, dim=0)
-    ce = torch.zeros(E, dtype=torch.float32, device=xf.device).index_add_(
-        0, expert_idx.reshape(-1),
-        torch.full((T * K,), 1.0 / (T * K), device=xf.device))
+    if group is None:
+        me = torch.mean(probs, dim=0)
+        ce = torch.zeros(E, dtype=torch.float32, device=xf.device
+                         ).index_add_(0, expert_idx.reshape(-1),
+                                      torch.full((T * K,), 1.0 / (T * K),
+                                                 device=xf.device))
+    else:
+        Tg = T * dist.get_world_size(group)
+        me = psum(torch.sum(probs, dim=0), group) / Tg
+        ce = torch.zeros(E, dtype=torch.float32, device=xf.device
+                         ).index_add_(0, expert_idx.reshape(-1),
+                                      torch.ones(T * K, device=xf.device))
+        dist.all_reduce(ce, group=group)
+        ce = ce / (Tg * K)
     aux = cfg.router_aux_coef * E * torch.sum(me * ce)
     return gate_vals, expert_idx, aux
 
 
-def _dispatch_tables(expert_idx, gate_vals, T: int, E: int, K: int, C: int):
+def _dispatch_tables(expert_idx, gate_vals, T: int, E: int, K: int, C: int,
+                     before=None, total=None):
     """Sort-based capacity dispatch.  Returns (buf (E, C) int32 token ids,
     pad id T; gbuf (E, C) f32 gates; slot (T, K) int64: the flat index
     e * C + c of each (token, choice) in `buf`, E * C where dropped).
+
+    `before` and `total` ((E,) int64) make the capacity a larger batch's,
+    of which these T tokens are one rank's share: `before[e]` of expert
+    e's entries come from earlier ranks, `total[e]` from all.  An entry is
+    kept by its position in the whole batch; the buffer holds this rank's
+    kept entries in min(C, T) slots (an expert takes a token at most
+    once).
 
     The reference writes every dropped slot to (E-1, C-1) with pad id T
     and gate 0, and XLA applies those duplicate writes in order, the last
@@ -78,20 +109,28 @@ def _dispatch_tables(expert_idx, gate_vals, T: int, E: int, K: int, C: int):
     group_start = torch.searchsorted(sorted_e, arange_e, side="left")
     pos_in_e = torch.arange(T * K, device=flat_e.device) - \
         group_start[sorted_e]
-    keep = pos_in_e < C
-    # the last expert's group runs to the end; if it overflowed, its
-    # slot C-1 is the reference's last write of the pad
-    last_overflowed = T * K - group_start[E - 1] > C
-    dst = torch.where(keep, sorted_e * C + pos_in_e, E * C)
-    dst = torch.where(last_overflowed & (dst == E * C - 1), E * C, dst)
-    # dropped entries all land in the scratch element E*C, cut off below
-    buf = torch.full((E * C + 1,), T, dtype=torch.int32,
+    if before is None:
+        gpos, Cb = pos_in_e, C
+        # the last expert's group runs to the end
+        last_overflowed = T * K - group_start[E - 1] > C
+    else:
+        gpos, Cb = pos_in_e + before[sorted_e], min(C, T)
+        last_overflowed = total[E - 1] > C
+    keep = gpos < C
+    dst = torch.where(keep, sorted_e * Cb + pos_in_e, E * Cb)
+    # if the last expert overflowed, its slot C-1 is the reference's last
+    # write of the pad
+    dst = torch.where(last_overflowed & (sorted_e == E - 1) & (gpos == C - 1),
+                      E * Cb, dst)
+    # dropped entries all land in the scratch element E*Cb, cut off below
+    buf = torch.full((E * Cb + 1,), T, dtype=torch.int32,
                      device=flat_e.device)
     buf.scatter_(0, dst, sorted_tok.to(torch.int32))
-    gbuf = torch.zeros(E * C + 1, dtype=torch.float32, device=flat_e.device)
+    gbuf = torch.zeros(E * Cb + 1, dtype=torch.float32, device=flat_e.device)
     gbuf.scatter_(0, dst, sorted_gate)
     slot = torch.empty_like(dst).scatter_(0, order, dst).reshape(T, K)
-    return buf[:E * C].reshape(E, C), gbuf[:E * C].reshape(E, C), slot
+    return (buf[:E * Cb].reshape(E, Cb), gbuf[:E * Cb].reshape(E, Cb),
+            slot)
 
 
 def _experts(xe, wg, wu, wd, activation: str) -> torch.Tensor:
@@ -101,7 +140,7 @@ def _experts(xe, wg, wu, wd, activation: str) -> torch.Tensor:
     # jax.nn.gelu defaults to the tanh approximation
     act = F.gelu(g, approximate="tanh") if activation == "geglu" \
         else F.silu(g)
-    return torch.bmm(act * u, wd)
+    return torch.bmm(pshard(act * u, "moe_ecf"), wd)
 
 
 def _combine(ye: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
@@ -121,23 +160,119 @@ def _combine(ye: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
 
 
 def moe_ffn(params, x: torch.Tensor, cfg: ModelConfig):
-    """x: (B, S, D) -> (y (B, S, D), aux 0-d f32)."""
+    """x: (B, S, D) -> (y (B, S, D), aux 0-d f32).  Dispatch impl per
+    cfg.moe_impl."""
+    if cfg.moe_impl == "shard_map":
+        ctx = current_ctx()
+        if ctx is not None:
+            return _moe_shard_map(params, x, cfg, ctx)
+    return _moe_gspmd(params, x, cfg)
+
+
+def _capacity(cfg: ModelConfig, T: int) -> int:
+    # Python float arithmetic, truncated, as the reference
+    return max(1, int(cfg.capacity_factor * T * cfg.experts_per_token
+                      / cfg.num_experts))
+
+
+def _expert_counts(expert_idx, E: int, group):
+    """(before, total): per expert, the entries routed on the group's
+    lower ranks and on all of them."""
+    counts = torch.bincount(expert_idx.reshape(-1), minlength=E)
+    every = [torch.empty_like(counts)
+             for _ in range(dist.get_world_size(group))]
+    dist.all_gather(every, counts, group=group)
+    every = torch.stack(every)
+    return every[:dist.get_rank(group)].sum(0), every.sum(0)
+
+
+def _moe_gspmd(params, x: torch.Tensor, cfg: ModelConfig):
     B, S, D = x.shape
     E, K = cfg.num_experts, cfg.experts_per_token
     T = B * S
+    ctx = current_ctx()
+    group = ctx.dp_group() if ctx is not None else None
     xf = x.reshape(T, D)
-    gate_vals, expert_idx, aux = _route(params, xf, cfg)
-    # Python float arithmetic, truncated, as the reference
-    C = max(1, int(cfg.capacity_factor * T * K / E))
-    buf, gbuf, slot = _dispatch_tables(expert_idx, gate_vals, T, E, K, C)
+    gate_vals, expert_idx, aux = _route(params, xf, cfg, group)
+    if group is None:
+        C = _capacity(cfg, T)
+        buf, gbuf, slot = _dispatch_tables(expert_idx, gate_vals, T, E, K, C)
+    else:
+        C = _capacity(cfg, T * dist.get_world_size(group))
+        buf, gbuf, slot = _dispatch_tables(
+            expert_idx, gate_vals, T, E, K, C,
+            *_expert_counts(expert_idx, E, group))
 
     # gather -> (E, C, D); the pad id T reads a zero row
     xe = torch.cat([xf, xf.new_zeros((1, D))])[buf]
+    xe = pshard(xe, "moe_ecd")
     ye = _experts(xe, wcast(params["w_gate"], xe.dtype),
                   wcast(params["w_up"], xe.dtype),
                   wcast(params["w_down"], xe.dtype), cfg.activation)
     ye = ye * gbuf[..., None].to(ye.dtype)
     y = _combine(ye, slot).reshape(B, S, D)
+    if "shared" in params:
+        y = y + mlp(params["shared"], x, cfg.activation)
+    return y, aux
+
+
+# ---------------------------------------------------------------------------
+# expert parallelism: explicit all-to-all dispatch
+# ---------------------------------------------------------------------------
+#
+# Each rank routes its own tokens with a local capacity, an all-to-all
+# sends every expert's block to the rank holding that expert, the local
+# experts compute, a second all-to-all returns the outputs and the source
+# rank combines.  Per-rank link bytes are O(T_local·K·cf·D).
+
+
+def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """Block j of dim 0 goes to rank j of `group`; the result holds, at
+    block j, what rank j sent here.  Differentiable (the backward is the
+    reverse exchange)."""
+    return fc.wait_tensor(fc.all_to_all_single_autograd(
+        x.contiguous(), None, None, group))
+
+
+def _moe_shard_map(params, x: torch.Tensor, cfg: ModelConfig, ctx):
+    pol = ctx.pol
+    E, K, D = cfg.num_experts, cfg.experts_per_token, cfg.d_model
+    n_ep, n_tp = ctx.size(pol.ep_axes), ctx.size(pol.tp_axis)
+    if E % n_ep or (n_tp > 1 and cfg.moe_d_ff % n_tp) \
+            or is_quantized(params["w_gate"]):
+        return _moe_gspmd(params, x, cfg)   # shapes don't tile
+
+    # x: this rank's rows (B_l, S, D); the local experts are E_l of E
+    # over EP and F_l of F over TP, sliced from the replicated stacks
+    Bl, S, _ = x.shape
+    Tl = Bl * S
+    El, Fl = E // n_ep, cfg.moe_d_ff // n_tp
+    e0, f0 = ctx.index(pol.ep_axes) * El, ctx.index(pol.tp_axis) * Fl
+    wg = params["w_gate"][e0:e0 + El, :, f0:f0 + Fl]
+    wu = params["w_up"][e0:e0 + El, :, f0:f0 + Fl]
+    wd = params["w_down"][e0:e0 + El, f0:f0 + Fl]
+    ep_group = ctx.group(pol.ep_axes)
+
+    xf = x.reshape(Tl, D)
+    gate_vals, expert_idx, aux = _route(params, xf, cfg)
+    C = _capacity(cfg, Tl)
+    buf, gbuf, slot = _dispatch_tables(expert_idx, gate_vals, Tl, E, K, C)
+    xe = torch.cat([xf, xf.new_zeros((1, D))])[buf]          # (E, C, D)
+    # exchange: every rank sends each expert block home, and holds its
+    # experts' blocks from every rank in rank order: (E_l, C·n_ep, D)
+    xe = _all_to_all(xe, ep_group)
+    xe = xe.reshape(n_ep, El, C, D).transpose(0, 1).reshape(El, n_ep * C, D)
+    ye = _experts(xe, wg.to(xe.dtype), wu.to(xe.dtype), wd.to(xe.dtype),
+                  cfg.activation)
+    # return trip; outputs are partial over TP (F was sliced)
+    ye = ye.reshape(El, n_ep, C, D).transpose(0, 1)
+    ye = _all_to_all(ye, ep_group).reshape(E, C, D)
+    ye = ye * gbuf[..., None].to(ye.dtype)
+    yf = _combine(ye, slot)
+    if n_tp > 1:
+        yf = psum(yf, ctx.group(pol.tp_axis))
+    aux = pmean(aux, ep_group)
+    y = yf.reshape(Bl, S, D)
     if "shared" in params:
         y = y + mlp(params["shared"], x, cfg.activation)
     return y, aux

@@ -9,6 +9,14 @@ checkpointing of `cfg.remat` is `torch.utils.checkpoint`).  Training runs
 no kernel: the kernels are forward-only and refuse a gradient, so train
 with `attn_impl="xla"` (or `"xla_chunked"`, `"xla_bhsd"`), as the
 reference does.
+
+Inside a `repro_torch.dist.sharding.MeshContext` the step is data
+parallel, what GSPMD gives the reference's step under a mesh: the
+parameters are replicated, each rank takes its rows of the global batch
+(`local_batch`), `loss_fn` makes loss and metrics the global batch's, and
+the grads are summed over the DP group before compression and the
+optimizer.  Ranks along the other dims hold the same rows and the same
+grads, and are not reduced over.
 """
 
 from __future__ import annotations
@@ -16,8 +24,10 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+import torch.distributed as dist
 
 from ..device import resolve
+from ..dist.context import current_ctx
 from ..models import decode_step, forward, init_params, loss_fn
 from ..models.config import ModelConfig
 from ..tree import tree_leaves, tree_map, tree_unflatten
@@ -67,8 +77,10 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
     n contiguous row blocks, their grads are summed into f32 zeros and
     divided by n (so the grads are f32 even for bf16 parameters), and the
     metrics hold only loss, grad_norm and step, as in the reference.
-    Then the int8 round trip (`grad_compression`) and the optimizer;
-    `grad_norm` is the norm of the grads it receives.  Like the
+    Inside a `MeshContext` each rank takes its rows of every microbatch
+    (of the whole batch), and the summed grads are then summed over the
+    DP group.  Then the int8 round trip (`grad_compression`) and the
+    optimizer; `grad_norm` is the norm of the grads it receives.  Like the
     reference's jitted step, which donates its input state, the step may
     reuse the input state's storage: do not read `state` after the call.
     """
@@ -76,6 +88,16 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
         params = state["params"]
         dev = state["step"].device
         batch = _to_device(batch, dev)
+        ctx = current_ctx()
+        local = ctx.local_batch if ctx is not None else (lambda b: b)
+        if ctx is not None and cfg.family == "moe" \
+                and cfg.moe_impl == "shard_map" \
+                and ctx.size(ctx.pol.tp_axis) > 1:
+            raise NotImplementedError(
+                "a train step through the expert-parallel MoE with TP > 1: "
+                "each model rank holds only its F slice of the expert "
+                "grads and its share of the router's, and the step sums "
+                "grads over DP only")
         if tcfg.microbatches > 1:
             n = tcfg.microbatches
             mbatches = {k: v.reshape(n, v.shape[0] // n, *v.shape[1:])
@@ -86,14 +108,19 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
             loss_sum = 0.0
             for i in range(n):
                 loss, _metrics, grads = loss_and_grads(
-                    params, {k: v[i] for k, v in mbatches.items()}, cfg)
+                    params, local({k: v[i] for k, v in mbatches.items()}),
+                    cfg)
                 gsum = tree_map(torch.add, gsum, grads)
                 loss_sum = loss_sum + loss
             grads = tree_map(lambda g: g / n, gsum)
             loss = loss_sum / n
             metrics = {}
         else:
-            loss, metrics, grads = loss_and_grads(params, batch, cfg)
+            loss, metrics, grads = loss_and_grads(params, local(batch), cfg)
+        group = ctx.dp_group() if ctx is not None else None
+        if group is not None:
+            for g in tree_leaves(grads):
+                dist.all_reduce(g, group=group)
 
         if tcfg.grad_compression:
             from ..dist.compression import compress_decompress

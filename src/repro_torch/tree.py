@@ -48,3 +48,13 @@ def tree_unzip(tree, n: int) -> tuple:
         parts = {k: tree_unzip(v, n) for k, v in tree.items()}
         return tuple({k: p[i] for k, p in parts.items()} for i in range(n))
     return tree
+
+
+def tree_map_with_path(fn, tree, prefix: str = ""):
+    """`fn(name, leaf)` over the leaves of `tree`, names as in
+    `tree_leaves_with_path` (`jax.tree_util.tree_map_with_path`)."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, f"{prefix}/{k}" if prefix
+                                      else str(k))
+                for k, v in tree.items()}
+    return fn(prefix, tree)

@@ -24,6 +24,7 @@ VERBATIM = [
     "baselines/__init__.py", "baselines/cassandra.py",
     "chaos/schedule.py", "chaos/linearizability.py", "chaos/availability.py",
     "chaos/mutations.py", "chaos/__init__.py",
+    "dist/context.py",
 ]
 
 

@@ -20,6 +20,8 @@ from repro_torch.models.model import init_quantized_params
 from repro_torch.serve.engine import Request, ServeConfig, ServingEngine
 from repro_torch.train.step import loss_and_grads
 from repro_torch.workload.generators import OpStream, WorkloadSpec
+from repro_torch.models.moe import init_moe
+from torch_dist_workers import gpu_ep_moe, gpu_gpipe, run_ranks
 from torch_stream_checks import (STREAM_CHECKS, TRANSFORM_CASES,
                                  assert_transforms_equal, batch_draws,
                                  transform_on)
@@ -477,3 +479,36 @@ def test_default_stream_samples_on_the_card(cuda):
     assert s._gen.device.type == "cuda"
     s.next_op()
     assert s.sampled == s.batch
+
+
+# ---------------------------------------------------------------------------
+# repro_torch.dist over NCCL, one rank per card
+# ---------------------------------------------------------------------------
+
+
+def test_gpipe_over_nccl_ranks(cuda, tmp_path):
+    """GPipe with one stage per card (send/recv over NCCL; a ring of one
+    on a single card) against the stages in sequence, 1e-5."""
+    for r in run_ranks(gpu_gpipe, torch.cuda.device_count(), tmp_path,
+                       timeout=300, backend="nccl"):
+        assert r["device"].startswith("cuda") and r["err"] <= 1e-5
+
+
+def test_ep_moe_over_nccl_ranks(cuda, tmp_path):
+    """The expert-parallel all-to-all MoE on a mesh of every card
+    (kimi-k2 smoke, 8 experts, cf 8, as tests/test_quant_and_dist.py):
+    shard_map and gspmd on each rank's rows equal the single-device path
+    within 1e-5, and the grads through the all-to-alls, summed over the
+    ranks, are finite and the single-device grads."""
+    cfg = smoke_config("kimi-k2-1t-a32b").scaled(
+        dtype="float32", num_experts=8, moe_d_ff=64, capacity_factor=8.0,
+        shared_expert_d_ff=0)
+    params = {k: v.numpy() for k, v in init_moe(
+        torch.Generator().manual_seed(0), cfg, torch.float32).items()}
+    for r in run_ranks(gpu_ep_moe, torch.cuda.device_count(), tmp_path, cfg,
+                       params, timeout=300, backend="nccl"):
+        assert r["device"].startswith("cuda")
+        assert r["err_sm"] <= 1e-5 and r["err_gs"] <= 1e-5
+        assert r["grads_finite"]
+        for err, scale in r["err_grads"]:
+            assert err <= 1e-5 * max(scale, 1.0)

@@ -1,0 +1,269 @@
+"""Rank bodies of the multi-process tests of `repro_torch.dist`
+(tests/test_torch_dist.py, tests/test_torch_dist_train.py) and the
+spawner that runs them: gloo ranks, one thread each, a `file://`
+rendezvous in the test's own directory, a deadline.  Each body runs in
+a spawned process, takes numpy inputs made by the test, and returns
+tensors, numbers and strings, which the test holds to the JAX package.
+Imports no JAX."""
+
+from __future__ import annotations
+
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+from torch.distributed.device_mesh import init_device_mesh
+from torch.distributed.tensor import Replicate, distribute_tensor
+
+from repro_torch.convert import params_from_numpy, train_state_from_numpy
+from repro_torch.data.pipeline import TokenStream
+from repro_torch.dist.pipeline import gpipe
+from repro_torch.dist.sharding import MeshContext, ShardingPolicy
+from repro_torch.models.layers import attention_decode, pshard
+from repro_torch.models.moe import moe_ffn
+from repro_torch.models.quant import quantize_tree
+from repro_torch.train.optim import OptimizerConfig
+from repro_torch.train.step import TrainConfig, make_train_step
+from repro_torch.tree import tree_leaves, tree_map
+
+
+def _entry(rank, fn, world, init_file, out_dir, backend, args):
+    torch.set_num_threads(1)
+    kw = {}
+    if backend == "nccl":
+        kw["device_id"] = torch.device("cuda", rank)
+        torch.cuda.set_device(rank)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group(backend, init_method=f"file://{init_file}",
+                            rank=rank, world_size=world, **kw)
+    try:
+        torch.save(fn(rank, world, *args), Path(out_dir) / f"{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def run_ranks(fn, world: int, tmp_path: Path, *args, timeout: float = 120,
+              backend: str = "gloo"):
+    """`fn(rank, world, *args)` on `world` spawned ranks (gloo on the CPU;
+    nccl, rank r on card r); returns their results in rank order.  A
+    rank's exception fails the call (`ProcessRaisedException`), and so
+    does the deadline."""
+    out = Path(tmp_path) / f"ranks_{fn.__name__}_{world}"
+    out.mkdir()
+    pc = mp.start_processes(_entry, args=(fn, world, str(out / "rdzv"),
+                                          str(out), backend, args),
+                            nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout
+    while not pc.join(timeout=max(0.0, deadline - time.monotonic())):
+        if time.monotonic() >= deadline:
+            for p in pc.processes:
+                p.kill()
+            raise TimeoutError(f"{fn.__name__}: {world} ranks ran past "
+                               f"{timeout} s")
+    return [torch.load(out / f"{r}.pt") for r in range(world)]
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a))
+
+
+def _grads(fn, params):
+    """d fn(params) / d params, summed over every rank of the world."""
+    leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    with torch.enable_grad():
+        out = fn(leaves)
+        grads = torch.autograd.grad(out, tree_leaves(leaves),
+                                    materialize_grads=True)
+    for g in grads:
+        dist.all_reduce(g)
+    return list(grads)
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_dist.py: eight ranks
+# ---------------------------------------------------------------------------
+
+
+def _gpipe_cases(Ws, x, stage_fn):
+    mesh = init_device_mesh("cpu", (4, 2), mesh_dim_names=("pipe", "model"))
+    y4 = gpipe(stage_fn, mesh, axis="pipe")(Ws, x)
+    try:
+        gpipe(stage_fn, mesh, axis="pipe")(Ws[:3], x)
+        err = ""
+    except ValueError as e:
+        err = str(e)
+    ring1 = init_device_mesh("cpu", (1, 8), mesh_dim_names=("pipe", "model"))
+    y1 = gpipe(stage_fn, ring1, axis="pipe")(Ws[:1], x)
+    return {"gpipe4": y4, "gpipe1": y1, "gpipe_err": err}
+
+
+def tanh_stages(W, x):
+    """tests/test_pipeline.py's stage: tanh(x @ W[i]) for each layer."""
+    for i in range(W.shape[0]):
+        x = torch.tanh(x @ W[i])
+    return x
+
+
+def _moe_case(mesh, cfg, params, x, grads: bool):
+    """Under the (4,2) context: shard_map and gspmd on this rank's rows,
+    and (`grads`) the grads of sum(y) through the all-to-alls summed over
+    the world; the single-device path on this rank's rows alone."""
+    ctx = MeshContext(mesh, cfg, ShardingPolicy.for_mesh(mesh))
+    xl = ctx.local_batch(x)
+    sm, gs = cfg.scaled(moe_impl="shard_map"), cfg.scaled(moe_impl="gspmd")
+    with ctx:
+        y_sm, aux_sm = moe_ffn(params, xl, sm)
+        y_gs, aux_gs = moe_ffn(params, xl, gs)
+        g_sm = _grads(lambda p: moe_ffn(p, xl, sm)[0].sum(), params) \
+            if grads else None
+    y_shard, aux_shard = moe_ffn(params, xl, sm)       # no context
+    return {"y_sm": y_sm, "aux_sm": aux_sm, "y_gs": y_gs, "aux_gs": aux_gs,
+            "g_sm": g_sm, "y_shard": y_shard, "aux_shard": aux_shard}
+
+
+def _decode_case(mesh, cfg, params, x, kc, vc, pos, window, sliced):
+    """attention_decode under the context on this rank's rows; `sliced`:
+    the caches are this rank's hd slice, else its rows at full hd."""
+    ctx = MeshContext(mesh, cfg, ShardingPolicy.for_mesh(mesh))
+    xl, kc, vc = (ctx.local_batch(_t(a)) for a in (x, kc, vc))
+    if sliced:
+        hl = kc.shape[-1] // ctx.size("model")
+        lo = ctx.index("model") * hl
+        kc, vc = kc[..., lo:lo + hl], vc[..., lo:lo + hl]
+    kc, vc = kc.contiguous(), vc.contiguous()
+    with ctx:
+        out, kc, vc = attention_decode(
+            params, xl, cfg.scaled(decode_attn_impl="shard_map"), kc, vc,
+            torch.tensor(pos, dtype=torch.int32), window=window)
+    return {"out": out, "k": kc, "v": vc}
+
+
+def _placements(x) -> list[str]:
+    return [f"Shard({p.dim})" if p.is_shard() else "Replicate()"
+            for p in x.placements]
+
+
+def _hook_case(mesh, cfg):
+    ctx = MeshContext(mesh, cfg, ShardingPolicy.for_mesh(mesh))
+    x = torch.arange(8 * 6, dtype=torch.float32).reshape(8, 6)
+    out = {"outside": pshard(x, "act_btd") is x}
+    full = distribute_tensor(x, mesh, [Replicate(), Replicate()])
+    odd = distribute_tensor(x[:3], mesh, [Replicate(), Replicate()])
+    with ctx:
+        out["local"] = pshard(x, "act_btd") is x
+        y = pshard(full, "act_btd")
+        out["dtensor"] = _placements(y)
+        out["dtensor_local_shape"] = list(y.to_local().shape)
+        out["dtensor_full"] = y.full_tensor()
+        out["odd"] = _placements(pshard(odd, "act_btd"))
+    out["after"] = pshard(x, "act_btd") is x
+    return out
+
+
+def dist_scenarios(rank, world, inp):
+    """Every case of tests/test_torch_dist.py on one (4,2) world."""
+    res = _gpipe_cases(_t(inp["Ws"]), _t(inp["x_pipe"]), tanh_stages)
+    mesh = init_device_mesh("cpu", (4, 2), mesh_dim_names=("data", "model"))
+    pods = init_device_mesh("cpu", (2, 2, 2),
+                            mesh_dim_names=("pod", "data", "model"))
+    for name, (cfg, p, x) in inp["moe"].items():
+        params = params_from_numpy(p, device="cpu")
+        if name == "int8":
+            params = quantize_tree(params)
+        res[f"moe_{name}"] = _moe_case(pods if name == "pods" else mesh,
+                                       cfg, params, _t(x),
+                                       grads=name == "ep")
+    for name, (cfg, p, args) in inp["decode"].items():
+        res[f"decode_{name}"] = _decode_case(
+            mesh, cfg, params_from_numpy(p, device="cpu"), *args)
+    res["hook"] = _hook_case(mesh, inp["decode"]["w0"][0])
+    return res
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_dist_train.py: the data-parallel step and the elastic
+# restart
+# ---------------------------------------------------------------------------
+
+
+def _steps(cfg, tcfg, mesh, state, dcfg, start, n):
+    """`n` train steps from stream step `start` under a context on
+    `mesh`; (state, per-step loss and grad_norm)."""
+    step = make_train_step(cfg, tcfg)
+    stream = TokenStream(dcfg, 0)
+    losses, norms = [], []
+    ctx = MeshContext(mesh, cfg, ShardingPolicy.for_mesh(mesh))
+    with ctx:
+        for s in range(start, start + n):
+            state, m = step(state, stream.batch_at(s))
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+    return state, losses, norms
+
+
+def dp_steps(rank, world, cases):
+    """Each case: `n` steps from its numpy state under a context on its
+    mesh shape; rank 0 returns the final state."""
+    out = {}
+    for name, (shape, cfg, tkw, dcfg, np_state, start, n) in cases.items():
+        mesh = init_device_mesh("cpu", shape, mesh_dim_names=("data",
+                                                              "model"))
+        tcfg = TrainConfig(optimizer=OptimizerConfig(lr=1e-3), **tkw)
+        state = train_state_from_numpy(np_state, device="cpu")
+        state, losses, norms = _steps(cfg, tcfg, mesh, state, dcfg, start, n)
+        out[name] = {"loss": losses, "grad_norm": norms,
+                     "state": state if rank == 0 else None}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_gpu.py: one NCCL rank per card
+# ---------------------------------------------------------------------------
+
+
+def gpu_gpipe(rank, world):
+    """tests/test_pipeline.py's stages with `world` stages on the cards,
+    against the stages in sequence on this card."""
+    dev = torch.device("cuda", rank)
+    rng = np.random.default_rng(0)
+    Ws = _t((rng.standard_normal((world, 2, 32, 32)) * 0.2
+             ).astype(np.float32)).to(dev)
+    x = _t(rng.standard_normal((6, 3, 32)).astype(np.float32)).to(dev)
+    mesh = init_device_mesh("cuda", (world, 1),
+                            mesh_dim_names=("pipe", "model"))
+    y = gpipe(tanh_stages, mesh, axis="pipe")(Ws, x)
+    ref = x
+    for s in range(world):
+        ref = tanh_stages(Ws[s], ref)
+    return {"err": float((y - ref).abs().max()), "device": str(y.device)}
+
+
+def gpu_ep_moe(rank, world, cfg, params):
+    """The EP MoE on a (world, 1) mesh of cards: shard_map and gspmd on
+    this rank's rows against the single-device path, and the grads of
+    sum(y) through the all-to-alls, summed over the ranks, against the
+    single-device grads of the whole batch."""
+    dev = torch.device("cuda", rank)
+    params = params_from_numpy(params, device=dev)
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (2 * world, 16, cfg.d_model)).astype(np.float32)).to(dev)
+    mesh = init_device_mesh("cuda", (world, 1),
+                            mesh_dim_names=("data", "model"))
+    res = _moe_case(mesh, cfg, params, x, grads=True)
+    ctx = MeshContext(mesh, cfg, ShardingPolicy.for_mesh(mesh))
+    y_full, _ = moe_ffn(params, x, cfg)
+    leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    with torch.enable_grad():
+        g_full = torch.autograd.grad(moe_ffn(leaves, x, cfg)[0].sum(),
+                                     tree_leaves(leaves))
+    rows = ctx.local_batch(y_full)
+    return {"err_sm": float((res["y_sm"] - rows).abs().max()),
+            "err_gs": float((res["y_gs"] - rows).abs().max()),
+            "grads_finite": all(bool(torch.isfinite(g).all())
+                                for g in res["g_sm"]),
+            "err_grads": [(float((g - f).abs().max()), float(f.abs().max()))
+                          for g, f in zip(res["g_sm"], g_full)],
+            "device": str(res["y_sm"].device)}
