@@ -119,7 +119,28 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      (c) the hd-sharded decode called at tp = world on SmolLM-360M's
      full-context step (bf16, 8 x 2048 at 2000) against the eager decode
      (TOL["bf16"]); (d) GPipe with one stage a rank (the reference
-     test's stages) against the stages in sequence (1e-5).
+     test's stages) against the stages in sequence (1e-5);
+ 14. `repro_torch.launch` (`[launch]` lines): (a) the shape-only
+     `init_params(device="meta")` of all ten archs at full width, each
+     count against `cfg.param_count()` plus the leaves its formula
+     leaves out, and its wall time, beside the card's drawing
+     `init_params` of SmolLM-360M; (b) the dry-run (a fake process group
+     of 256 on the host) on smollm-360m x {train_4k, prefill_32k,
+     decode_32k}, mamba2-2.7b x long_500k (batch 1, replicated) and
+     gemma-7b x long_500k (the skip record): dominant term, memory per
+     device, counted FLOPs against `model_flops`, seconds; (c) the H100
+     roofline on the card's numbers: `model_flops` of phase 9's step
+     over phase 9's p50 (MFU against 989 TF/s), FlopCounterMode's count
+     of one real step on the card over `model_flops` (the useful ratio),
+     the dry-run's `argument_bytes` of that step on a world of one
+     against the card's train state and batch (equal), and its predicted
+     peak beside the card's measured one; (d) inside phase 13's ranks,
+     with each rank's block of the parameters (`MeshContext.shard_state`
+     / `shard_params`, a world of one on one card): 3 steps of 13(a)
+     against its replicated losses (1e-5), the collective inventory of
+     one step (`launch.hlo.CollectiveInventory`), and a bf16 SmolLM-360M
+     prefill (2 x 2048, flash wgmma) and 8 decode steps (decode split)
+     on the local heads against the replicated path (TOL["bf16"]).
 Phase 3 also checks, and phase 8 times, phase 11's attention shapes:
 Phi-3.5-MoE's 32/8 heads at hd 128 (bf16 decode over 8 x 512 cached
 tokens, the bf16 2048-token prefill, and the f32 shapes of 11(a)) and
@@ -131,11 +152,13 @@ share), the first step's logits against the eager path.
 Phases 4-5, 6 and 7 are the three serving main paths, phase 9 the
 training path, phase 10 the store path (commit, restore, serve with
 refresh, resume), phase 11 the moe path, phase 12 the workload path,
-phase 13 the dist path.  The launch counters are zeroed just before each
-and read just after it (phase 13: in each rank's process, summed by the
-parent); every kernel variant of a serving path must have launched
-there, decode_attention on the store path's engine, decode and both
-flash variants on the moe path, flash fma on the dist path, and none on
+phase 13 the dist path, phase 14(d) the launch path.  The launch
+counters are zeroed just before each and read just after it (phases 13
+and 14(d): in each rank's process, summed by the parent); every kernel
+variant of a serving path must have launched there, decode_attention on
+the store path's engine, decode and both flash variants on the moe path,
+flash fma on the dist path, flash wgmma and decode on the launch path,
+and none on
 the training path (the kernels are forward-only, so training takes the
 eager attention path, as the reference's does) or on the workload path
 (no model runs there).  The
@@ -171,7 +194,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.checkpoint import (SpinnakerCheckpointStore,  # noqa: E402
                                     StaleTrainerError, StoreConfig)
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import get_config, list_archs  # noqa: E402
 from repro_torch.convert import (params_from_numpy,  # noqa: E402
                                  train_state_from_numpy,
                                  train_state_to_numpy)
@@ -186,6 +209,11 @@ from repro_torch.kernels.decode_attention.ref import \
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch import roofline  # noqa: E402
+from repro_torch.launch.hlo import CollectiveInventory  # noqa: E402
+from repro_torch.launch.shapes import SHAPES as dryrun_shapes  # noqa: E402
+from repro_torch.launch.shapes import ShapeSpec  # noqa: E402
 from repro_torch.models import (decode_step, forward, init_cache,  # noqa: E402
                                 init_params, prefill)
 from repro_torch.models import layers as layers_mod  # noqa: E402
@@ -244,6 +272,10 @@ DECODE_CASES = [
     (33, 32, 32, 128, 112, 100, 0), (2, 96, 8, 1200, 128, 1150, 0),
     (2, 8, 2, 1100, 256, 1090, 0),
     (8, 56, 8, 16384, 128, 16384, 0),          # DeepSeek-Coder-33B, 16K
+    # phase 14(d): SmolLM-360M's 8 decode steps after a 2048-token prompt
+    # in a cache of 2056 (8 rows past the last 64-row tile), lengths
+    # 2049..2056
+    (2, 15, 5, 2056, 64, 2049, 0), (2, 15, 5, 2056, 64, 2056, 0),
     # phase 11: Phi-3.5-MoE serving (8 x 512, mid length) and 11(a)'s f32
     # decode (B=2, T=16, lengths 1..16); Kimi-K2's 64/8 heads (11(d))
     (8, 32, 8, 512, 128, 256, 0), (2, 32, 8, 16, 128, 8, 0),
@@ -2409,6 +2441,15 @@ def dist_rank(rank: int, world: int) -> None:
             out[part]["wall_s"] = time.perf_counter() - t0
             free()
         out["launches"] = launch_counts()
+        # phase 14(d): the launch path, its counters apart
+        t0 = time.perf_counter()
+        out["sharded_train"] = sharded_train(world, device,
+                                             out["train"]["losses_plain"])
+        free()
+        out["sharded_serve"], out["launch_launches"] = sharded_serve(
+            world, device)
+        out["sharded_wall_s"] = time.perf_counter() - t0
+        free()
         torch.save(out, DIST_DIR / f"{rank}.pt")
     finally:
         dist.destroy_process_group()
@@ -2426,6 +2467,8 @@ def dist_path(device) -> tuple[dict, dict]:
     outs = [torch.load(DIST_DIR / f"{r}.pt") for r in range(world)]
     launches = {k: sum(o["launches"][k] for o in outs)
                 for k in outs[0]["launches"]}
+    launch_launches = {k: sum(o["launch_launches"][k] for o in outs)
+                       for k in outs[0]["launch_launches"]}
     res = outs[0]
     a, b, c, d = res["train"], res["moe"], res["decode"], res["gpipe"]
     log("dist", f"world {world} (NCCL, one rank per card)")
@@ -2450,7 +2493,270 @@ def dist_path(device) -> tuple[dict, dict]:
     log("dist", "wall s per part (rank 0): " + ", ".join(
         f"{k} {res[k]['wall_s']:.1f}" for k in ("train", "moe", "decode",
                                                   "gpipe")))
-    return res, launches
+    return res, launches, launch_launches
+
+
+# ---------------------------------------------------------------------------
+# phase 14: launch/ -- shape-only trees, the dry-run, the H100 roofline
+# on the card's own numbers, and sharded parameters on the card
+# ---------------------------------------------------------------------------
+
+DRYRUN_DIR = Path(__file__).resolve().parent / "build" / "dryrun_torch"
+DRYRUN_CELLS = [("smollm-360m", "train_4k"), ("smollm-360m", "prefill_32k"),
+                ("smollm-360m", "decode_32k"), ("mamba2-2.7b", "long_500k"),
+                ("gemma-7b", "long_500k")]
+# phase 9's step: 4 x 2048 tokens
+PHASE9_SPEC = ShapeSpec("phase9_step", "train", 2048, 4)
+
+
+def uncounted(cfg: ModelConfig) -> int:
+    """The leaves `param_count()`'s analytic formula leaves out: the final
+    norm's D, and per SSM block conv_b (d_inner + 2 G N) and the third
+    (H,) vector, less the D of a norm it counts twice."""
+    n = cfg.d_model
+    if cfg.has_ssm:
+        n += cfg.num_layers * (cfg.d_inner + 2 * cfg.ssm_groups
+                               * cfg.ssm_state + cfg.ssm_heads
+                               - cfg.d_model)
+    return n
+
+
+def shape_only_trees(device) -> None:
+    """14(a): every arch's shape-only parameter tree at full width, its
+    count held to the analytic one, and the card's drawing path."""
+    for arch in list_archs():
+        cfg = get_config(arch)
+        t0 = time.perf_counter()
+        params = init_params(cfg, device="meta")
+        ms = 1e3 * (time.perf_counter() - t0)
+        n = sum(t.numel() for t in tree_leaves(params))
+        want = cfg.param_count() + uncounted(cfg)
+        log("launch", f"(a) {arch}: {n} parameters shape-only in {ms:.1f} "
+            f"ms; param_count() {cfg.param_count()} + {uncounted(cfg)} "
+            f"leaves it leaves out = {want}")
+        if n != want:
+            raise AssertionError(f"14(a) {arch}: {n} != {want}")
+    cfg = get_config("smollm-360m")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=device)
+    torch.cuda.synchronize()
+    log("launch", f"(a) smollm-360m drawn on the card (init_params): "
+        f"{time.perf_counter() - t0:.3f} s")
+    del params
+    free()
+
+
+def duplicate_flops(cfg: ModelConfig, spec, tp: int, dp: int) -> float:
+    """Forward FLOPs a device of a (dp, tp) mesh computes whole although
+    its TP group could share them, (1 - 1/tp) of the matmuls of the
+    leaves gathered whole: the unembedding (the vocab split), Mamba2's
+    in_proj and out_proj (the packed layout), and an attention whose KV
+    heads do not split over TP (its projections, and its scores and
+    values over the whole context, as the eager path computes them).  A
+    train step runs them 4 times (forward, remat forward, 2 backward)."""
+    rows = spec.global_batch // dp if spec.global_batch % dp == 0 \
+        else spec.global_batch
+    tok = rows * (1 if spec.kind == "decode" else spec.seq_len)
+    D, L, V = cfg.d_model, cfg.num_layers, cfg.vocab_size
+    f = 2 * tok * V * D
+    if cfg.has_ssm:
+        G, N = cfg.ssm_groups, cfg.ssm_state
+        f += L * 2 * tok * D * (3 * cfg.d_inner + 2 * G * N + cfg.ssm_heads)
+    if cfg.family in ("dense", "moe") and cfg.num_kv_heads % tp:
+        H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+        f += L * 2 * tok * 2 * D * (H + Hkv) * hd
+        f += L * 4 * tok * H * spec.seq_len * hd
+    return f * (4 if spec.kind == "train" else 1) * (1 - 1 / tp)
+
+
+def dryrun_cells() -> None:
+    """14(b): the dry-run's cells on the host, each with the FLOPs its
+    gathered-whole leaves duplicate over TP (`duplicate_flops`)."""
+    for arch, shape in DRYRUN_CELLS:
+        t0 = time.perf_counter()
+        rec = dryrun.run_cell(arch, shape, "pod", DRYRUN_DIR, overwrite=True)
+        secs = time.perf_counter() - t0
+        if rec["status"] == "skipped":
+            log("launch", f"(b) {rec['cell']}: skipped ({rec['reason']}), "
+                f"{secs:.1f} s")
+            if arch != "gemma-7b":
+                raise AssertionError(f"14(b) {rec['cell']} skipped")
+            continue
+        r, mem = rec["roofline"], rec["memory"]
+        flops = rec["cost_extrapolated"]["flops"]
+        dup = duplicate_flops(get_config(arch), dryrun_shapes[shape], 16, 16)
+        log("launch", f"(b) {rec['cell']}: dominant {r['dominant']} "
+            f"(compute {r['compute_s']:.6g} s, memory {r['memory_s']:.6g} "
+            f"s, collective {r['collective_s']:.6g} s); per device "
+            f"arguments {mem['argument_bytes']} B + temporaries "
+            f"{mem['temp_bytes']} B = "
+            f"{(mem['argument_bytes'] + mem['temp_bytes']) / 1e9:.3f} GB; "
+            f"counted {flops:.6g} FLOP per device x {rec['chips']} against "
+            f"model_flops {r['model_flops']:.6g} (useful ratio "
+            f"{r['useful_ratio']:.4g}); {dup:.6g} of the counted FLOP "
+            f"({dup / flops:.4f}) duplicated over TP by the leaves "
+            f"gathered whole; link "
+            f"{rec['cost_extrapolated']['link_bytes']:.6g} B per device; "
+            f"{secs:.1f} s")
+
+
+def roofline_on_card(device, p50_ms: float) -> dict:
+    """14(c): phase 9's step against the H100 roofline: MFU from its p50,
+    the useful ratio from FlopCounterMode on one real step, and the
+    dry-run's memory of the same step on a world of one against the
+    card's state, batch and measured peak."""
+    from torch.utils.flop_counter import FlopCounterMode
+    cfg = get_config("smollm-360m").scaled(attn_impl="xla",
+                                           remat_policy="full")
+    tcfg = TrainConfig(optimizer=OptimizerConfig(lr=3e-4, weight_decay=0.1,
+                                                 grad_clip=1.0))
+    mf = roofline.model_flops(cfg, PHASE9_SPEC)
+    mfu = mf / (1e-3 * p50_ms * roofline.PEAK_FLOPS)
+    stream = TokenStream(DataConfig(vocab_size=cfg.vocab_size, seq_len=2048,
+                                    global_batch=4, seed=0,
+                                    mixture_docs=True), 0)
+    free()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(cfg, tcfg, seed=0, device=device)
+    batch = {k: torch.as_tensor(v).to(device)
+             for k, v in stream.batch_at(0).items()}
+    state_b, batch_b = tree_bytes(state), tree_bytes(batch)
+    with FlopCounterMode(display=False) as fcm:
+        new, m = make_train_step(cfg, tcfg)(state, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    counted = fcm.get_total_flops()
+    del state, new, batch
+    free()
+    mem = dryrun.step_memory(cfg, PHASE9_SPEC)
+    predicted = mem.argument_size_in_bytes + mem.temp_size_in_bytes
+    out = dict(model_flops=mf, p50_ms=p50_ms, mfu=mfu, counted_flops=counted,
+               useful_ratio=mf / counted, state_bytes=state_b,
+               batch_bytes=batch_b,
+               argument_bytes=mem.argument_size_in_bytes,
+               temp_bytes=mem.temp_size_in_bytes, predicted_peak=predicted,
+               measured_peak=peak, peak_ratio=peak / predicted,
+               loss=float(m["loss"]))
+    log("launch", f"(c) phase 9's step (smollm-360m, 4 x 2048 tokens, bf16, "
+        f"remat full): model_flops {mf:.6g} over p50 {p50_ms:.3f} ms = "
+        f"{mf / (1e-3 * p50_ms) / 1e12:.3f} TFLOP/s, MFU {mfu:.5f} of "
+        f"{roofline.PEAK_FLOPS / 1e12:.0f} TF/s; FlopCounterMode counted "
+        f"{counted:.6g} FLOP on the card, useful ratio {mf / counted:.5f}")
+    log("launch", f"(c) the dry-run's argument_bytes on a world of one "
+        f"{mem.argument_size_in_bytes} B; the card's train state {state_b} "
+        f"B + batch {batch_b} B = {state_b + batch_b} B; predicted peak "
+        f"(arguments + temporaries {mem.temp_size_in_bytes} B) {predicted} "
+        f"B, measured {peak} B, ratio {peak / predicted:.4f}")
+    if mem.argument_size_in_bytes != state_b + batch_b:
+        raise AssertionError(f"14(c) argument_bytes "
+                             f"{mem.argument_size_in_bytes} != the card's "
+                             f"{state_b + batch_b}")
+    return out
+
+
+def sharded_train(world, device, plain) -> dict:
+    """14(d), in a phase 13 rank: 13(a)'s 3 steps with this rank's blocks
+    of the train state (`MeshContext.shard_state`), against its
+    replicated losses `plain`; the collective inventory of a 4th step."""
+    cfg = get_config("smollm-360m").scaled(attn_impl="xla",
+                                           remat_policy="full")
+    tcfg = TrainConfig(optimizer=OptimizerConfig(lr=3e-4, weight_decay=0.1,
+                                                 grad_clip=1.0))
+    stream = TokenStream(DataConfig(vocab_size=cfg.vocab_size, seq_len=2048,
+                                    global_batch=4, seed=0,
+                                    mixture_docs=True), 0)
+    batches = [stream.batch_at(s) for s in range(3)]
+    mesh = init_device_mesh(device.type, (world, 1),
+                            mesh_dim_names=("data", "model"))
+    ctx = MeshContext(mesh, cfg, ShardingPolicy.for_mesh(mesh))
+    state = ctx.shard_state(init_train_state(cfg, tcfg, seed=0,
+                                             device=device))
+    stored = tree_bytes(state["params"])
+    free()
+    with ctx:
+        state, losses, _, secs = train_steps(cfg, tcfg, state, batches)
+        with CollectiveInventory() as inv:
+            make_train_step(cfg, tcfg)(state, batches[0])
+    if not np.allclose(losses, plain, rtol=DIST_TOL, atol=0):
+        raise AssertionError(f"14(d) sharded losses {losses} != replicated "
+                             f"{plain}")
+    return dict(losses=losses, losses_plain=plain, stored_param_bytes=stored,
+                p50_ms=1e3 * float(np.median(secs[1:])),
+                inventory=inv.stats.table())
+
+
+def sharded_serve(world, device) -> tuple[dict, dict]:
+    """14(d), in a phase 13 rank: a bf16 SmolLM-360M prefill (2 x 2048,
+    flash wgmma) and 8 decode steps (decode split, a cache of 2056) with
+    this rank's blocks of the parameters and cache under a (1, world)
+    data x model context, against the replicated path through the same
+    kernels and against the eager path (attn_impl "xla") on the same
+    parameters and tokens; the launches of the sharded run only."""
+    cfg = get_config("smollm-360m").scaled(attn_impl="pallas")
+    params = init_params(cfg, seed=0, device=device)
+    gen = torch.Generator(device=device).manual_seed(4)
+    B, S, T, steps = 2, 2048, 2048 + 8, 8
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S),
+                                     generator=gen, device=device)}
+    toks = torch.randint(0, cfg.vocab_size, (B, steps), generator=gen,
+                         device=device)
+
+    def run(p, cache, c):
+        last = prefill(p, batch, c, T)
+        out = []
+        for t in range(steps):
+            lg, cache = decode_step(p, cache, toks[:, t:t + 1], c)
+            out.append(lg)
+        return last.float(), torch.stack(out).float()
+    eager = run(params, init_cache(cfg, B, T, device=device),
+                cfg.scaled(attn_impl="xla"))
+    ref = run(params, init_cache(cfg, B, T, device=device), cfg)
+    mesh = init_device_mesh(device.type, (1, world),
+                            mesh_dim_names=("data", "model"))
+    ctx = MeshContext(mesh, cfg, ShardingPolicy.for_mesh(mesh))
+    local = ctx.shard_params(params)
+    cache = ctx.shard_cache(init_cache(cfg, B, T, device=device))
+    del params
+    zero_launches()
+    with ctx:
+        got = run(local, cache, cfg)
+    launches = launch_counts()
+    err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+    # the eager path rounds scores to bf16 where the kernels keep f32:
+    # phases 4 and 5's limits for the whole model against it
+    rel = [float((g - e).abs().max() / e.abs().max())
+           for g, e in zip(got, eager)]
+    agree = [float((g.argmax(-1) == e.argmax(-1)).float().mean())
+             for g, e in zip(got, eager)]
+    if not (err <= TOL["bf16"] and rel[0] <= PREFILL_REL_LIMIT
+            and rel[1] <= DECODE_REL_LIMIT):
+        raise AssertionError(f"14(d) sharded prefill/decode max |diff| "
+                             f"{err} vs replicated (limit {TOL['bf16']}); "
+                             f"max |diff| / max |logit| vs eager {rel} "
+                             f"(limits {PREFILL_REL_LIMIT}, "
+                             f"{DECODE_REL_LIMIT})")
+    return dict(max_abs_err=err, max_abs_ref=float(ref[1].abs().max()),
+                rel_eager=rel, agree_eager=agree, tp=world), launches
+
+
+def report_sharded(res) -> None:
+    tr, sv = res["sharded_train"], res["sharded_serve"]
+    log("launch", f"(d) smollm-360m step with sharded parameters "
+        f"({tr['stored_param_bytes']} B stored a rank): losses "
+        f"{tr['losses']}, replicated {tr['losses_plain']} (rtol "
+        f"{DIST_TOL}); p50 {tr['p50_ms']:.3f} ms")
+    log("launch", f"(d) collective inventory of one sharded step: "
+        f"{tr['inventory']}")
+    log("launch", f"(d) bf16 prefill 2 x 2048 + 8 decode steps on the "
+        f"local heads (tp {sv['tp']}): max |diff| {sv['max_abs_err']:.3g} "
+        f"vs replicated (limit {TOL['bf16']}, max |logit| "
+        f"{sv['max_abs_ref']:.3g}); vs eager max |diff| / max |logit| "
+        f"prefill {sv['rel_eager'][0]:.3g} (limit {PREFILL_REL_LIMIT}), "
+        f"decode {sv['rel_eager'][1]:.3g} (limit {DECODE_REL_LIMIT}), "
+        f"top-1 agreement {sv['agree_eager'][0]:.3g}, "
+        f"{sv['agree_eager'][1]:.3g}")
 
 
 def main() -> int:
@@ -2591,10 +2897,26 @@ def main() -> int:
 
     # -- phase 13: multi-device dist, one NCCL rank per card ------------------
     t0 = time.perf_counter()
-    _dist_res, dist_launches = dist_path(device)
+    dist_res, dist_launches, launch_launches = dist_path(device)
     paths["dist"] = read_launches("dist", ("flash_attention.fma",),
                                   dist_launches)
-    log("dist", f"phase 13 took {time.perf_counter() - t0:.1f} s")
+    log("dist", f"phase 13 took {time.perf_counter() - t0:.1f} s, 14(d) "
+        f"{dist_res['sharded_wall_s']:.1f} s of it")
+
+    # -- phase 14: launch/ (14(d) ran in phase 13's ranks) ------------------
+    t0 = time.perf_counter()
+    paths["launch"] = read_launches(
+        "launch", ("flash_attention.wgmma", "decode_attention.split"),
+        launch_launches)
+    report_sharded(dist_res)
+    zero_launches()
+    shape_only_trees(device)
+    dryrun_cells()
+    roofline_on_card(device, train["p50_ms"])
+    if any(launch_counts().values()):
+        raise AssertionError("14(a)-(c) launched a kernel")
+    log("launch", f"phase 14 took {time.perf_counter() - t0:.1f} s here, "
+        f"and {dist_res['sharded_wall_s']:.1f} s in phase 13's ranks")
     launches = {k: sum(p[k] for p in paths.values())
                 for k in paths["smollm"]}
     log("timing", f"main-path launches per path: {paths}")

@@ -1,2 +1,4 @@
-"""Launch helpers; mirrors `repro.launch`: real input batches (`shapes`)
-and the device meshes (`mesh`)."""
+"""Launch tools; mirrors `repro.launch`: the assigned shapes, input specs
+and real batches (`shapes`), the device meshes (`mesh`), the roofline on
+H100 constants (`roofline`), the collective inventory (`hlo`) and the
+multi-pod dry-run (`dryrun`)."""

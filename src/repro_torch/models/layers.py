@@ -3,7 +3,8 @@
 Parameters are plain dicts of tensors with the reference's names and
 layout (matmul weights stored (in, out), dense or as `quant`'s int8
 {"q", "s"}).  Every layer is an `init_*` function drawing one layer's
-parameters from a `torch.Generator` and an apply function.
+parameters from a `torch.Generator` (with `gen=None`, on the meta
+device: shapes and dtypes only) and an apply function.
 `cfg.attn_impl == "pallas"` routes attention through the hand-written
 kernels (`repro_torch.kernels`, forward-only); "xla" is the eager path,
 the counterpart of the reference's XLA branch, "xla_chunked" its online
@@ -15,7 +16,11 @@ pluggable activation hook that `MeshContext` installs (the identity when
 none is installed, and on a plain tensor, which inside a context already
 holds this rank's rows), and `decode_attn_impl="shard_map"` decodes with
 hd-sharded K/V and an all-reduce of the partial scores inside a context
-whose TP size divides hd but not the KV heads.
+whose TP size divides hd but not the KV heads.  A module whose
+parameters come TP-split (`dist.sharding.TPLocal`, from
+`MeshContext.materialize`) computes on this rank's heads or d_ff columns:
+its input enters the TP group (`tp_enter`) and its output is summed over
+it (`psum`); the attention kernels run unchanged on the local heads.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from ..dist.sharding import psum, tp_enter, tp_group
 from .config import ModelConfig
 from .quant import wcast
 
@@ -63,12 +69,19 @@ def _trunc_normal(gen, shape, std, dtype, device):
 
 def dense_init(gen, shape, in_axis: int = 0, dtype=torch.float32,
                device="cpu"):
+    """Truncated normal, std 1/sqrt(fan_in); with no generator (the
+    shape-only build on the meta device) an empty tensor of that shape and
+    dtype, drawn from nothing."""
+    if gen is None:
+        return torch.empty(shape, dtype=dtype, device=device)
     return _trunc_normal(gen, shape, 1.0 / math.sqrt(shape[in_axis]), dtype,
                          device)
 
 
 def embed_init(gen, shape, dtype=torch.float32, device="cpu",
                std: float = 0.02):
+    if gen is None:
+        return torch.empty(shape, dtype=dtype, device=device)
     return _trunc_normal(gen, shape, std, dtype, device)
 
 
@@ -144,10 +157,14 @@ def _check_attn_impl(cfg: ModelConfig) -> None:
 
 def attention(params, x: torch.Tensor, cfg: ModelConfig,
               positions: torch.Tensor, window: int = 0) -> torch.Tensor:
-    """Causal self-attention over the full sequence (train / prefill)."""
+    """Causal self-attention over the full sequence (train / prefill); on
+    this rank's heads when `params` are TP-split."""
     _check_attn_impl(cfg)
     B, S, D = x.shape
-    H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    H, Hkv, hd = _heads(params, cfg)
+    tp = tp_group(params)
+    if tp is not None:
+        x = tp_enter(x, tp)
     rep = H // Hkv
     q = linear(params["wq"], x).reshape(B, S, H, hd)
     k = linear(params["wk"], x).reshape(B, S, Hkv, hd)
@@ -187,7 +204,23 @@ def attention(params, x: torch.Tensor, cfg: ModelConfig,
         probs = torch.softmax(scores.float(), dim=-1).to(x.dtype)
         o = torch.einsum("bhrst,bthd->bshrd", probs, v).reshape(B, S, H * hd)
     o = pshard(o, "act_bshd_flat")
-    return linear(params["wo"], o)
+    return _tp_out(linear(params["wo"], o), tp)
+
+
+def _heads(params, cfg: ModelConfig) -> tuple[int, int, int]:
+    """(H, Hkv, hd) of the heads these parameters hold: all of them, or
+    this rank's share when they are TP-split."""
+    H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    tp = tp_group(params)
+    if tp is not None:
+        n = dist.get_world_size(tp)
+        H, Hkv = H // n, Hkv // n
+    return H, Hkv, hd
+
+
+def _tp_out(y: torch.Tensor, tp) -> torch.Tensor:
+    """A row-parallel product's partial sums added over the TP group."""
+    return y if tp is None else psum(y, tp)
 
 
 def _causal_mask(positions: torch.Tensor, window: int) -> torch.Tensor:
@@ -260,11 +293,15 @@ def attention_decode(params, x: torch.Tensor, cfg: ModelConfig,
     With `decode_attn_impl="shard_map"`, inside a `MeshContext` whose TP
     size tp divides hd but not Hkv (the reference's gate), x is this
     rank's rows and the caches are this rank's hd slices (B,Hkv,T,hd/tp):
-    see `_decode_attention_shard_map`.
+    see `_decode_attention_shard_map`.  With TP-split parameters the
+    caches hold this rank's KV heads (`MeshContext.shard_cache`).
     """
     _check_attn_impl(cfg)
     B, _, D = x.shape
-    H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    H, Hkv, hd = _heads(params, cfg)
+    tp = tp_group(params)
+    if tp is not None:
+        x = tp_enter(x, tp)
     rep = H // Hkv
     T = k_cache.shape[2]
     q = linear(params["wq"], x).reshape(B, 1, H, hd)
@@ -277,11 +314,11 @@ def attention_decode(params, x: torch.Tensor, cfg: ModelConfig,
     if cfg.decode_attn_impl == "shard_map":
         from ..dist.context import current_ctx
         ctx = current_ctx()
-        tp = ctx.size(ctx.pol.tp_axis) if ctx is not None else 0
+        ntp = ctx.size(ctx.pol.tp_axis) if ctx is not None else 0
         # only when KV heads cannot shard the model axis; head-shardable
         # archs decode collective-free.  (The reference also asks that the
         # global batch split over DP: B rows a rank are such a split.)
-        if ctx is not None and Hkv % tp != 0 and hd % tp == 0:
+        if ctx is not None and Hkv % ntp != 0 and hd % ntp == 0:
             o, k_cache, v_cache = _decode_attention_shard_map(
                 q.reshape(B, 1, Hkv, rep, hd), k, v, k_cache, v_cache, pos,
                 ctx, window=window)
@@ -308,7 +345,7 @@ def attention_decode(params, x: torch.Tensor, cfg: ModelConfig,
         probs = torch.softmax(scores.float(), dim=-1).to(x.dtype)
         o = torch.einsum("bhrst,bhtd->bshrd", probs,
                          v_cache.to(x.dtype)).reshape(B, 1, H * hd)
-    return linear(params["wo"], o), k_cache, v_cache
+    return _tp_out(linear(params["wo"], o), tp), k_cache, v_cache
 
 
 def _decode_attention_shard_map(q, k_new, v_new, k_cache, v_cache, pos, ctx,
@@ -369,10 +406,15 @@ def init_mlp(gen, d_model: int, d_ff: int, dtype, device="cpu"):
 
 
 def mlp(params, x: torch.Tensor, activation: str) -> torch.Tensor:
+    """The gated MLP; on this rank's d_ff columns when `params` are
+    TP-split."""
+    tp = tp_group(params)
+    if tp is not None:
+        x = tp_enter(x, tp)
     g = linear(params["w_gate"], x)
     u = linear(params["w_up"], x)
     # jax.nn.gelu defaults to the tanh approximation
     act = F.gelu(g, approximate="tanh") if activation == "geglu" \
         else F.silu(g)
     h = pshard(act * u, "act_btf")
-    return linear(params["w_down"], h)
+    return _tp_out(linear(params["w_down"], h), tp)

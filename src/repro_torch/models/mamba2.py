@@ -19,11 +19,13 @@ from .layers import dense_init, init_rmsnorm, linear, pshard, rms_norm
 
 def init_mamba2(gen, cfg: ModelConfig, dtype, device):
     """The reference's distributions: log-uniform dt in [1e-3, 1e-1] held
-    as softplus^-1 in `dt_bias`, A = -linspace(1, 16, H), D = 1."""
+    as softplus^-1 in `dt_bias`, A = -linspace(1, 16, H), D = 1.  With
+    `gen=None` (meta) nothing is drawn."""
     D, Din = cfg.d_model, cfg.d_inner
     N, H, G = cfg.ssm_state, cfg.ssm_heads, cfg.ssm_groups
     conv_dim = Din + 2 * G * N
-    u = torch.rand((H,), generator=gen, device=device)
+    u = torch.empty((H,), device=device) if gen is None else \
+        torch.rand((H,), generator=gen, device=device)
     lo, hi = math.log(1e-3), math.log(1e-1)
     dt = torch.exp(lo + (hi - lo) * u)
     return {

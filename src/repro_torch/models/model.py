@@ -68,11 +68,14 @@ def _layer_init(gen, cfg: ModelConfig, dt, dev) -> dict:
 
 def _init(cfg: ModelConfig, seed: int, device, transform) -> dict:
     """Parameters drawn one layer at a time into the stacks, each layer
-    (and the rest of the tree) passed through `transform` first."""
+    (and the rest of the tree) passed through `transform` first.  On the
+    meta device nothing is drawn (no generator): every leaf is empty, with
+    the shape and dtype the drawing path gives it."""
     _check_family(cfg)
     dev = resolve(device)
     dt = _dtype(cfg)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = None if dev.type == "meta" else \
+        torch.Generator(device=dev).manual_seed(seed)
     D, L = cfg.d_model, cfg.num_layers
     params: dict[str, Any] = {
         "embed": embed_init(gen, (cfg.vocab_size, D), dt, dev),
@@ -85,6 +88,8 @@ def _init(cfg: ModelConfig, seed: int, device, transform) -> dict:
         if i == 0:
             params["layers"] = tree_map(
                 lambda t: t.new_empty((L,) + t.shape), layer)
+        if gen is None:
+            break               # shapes only: one layer gives the stacks
         tree_map(lambda s, t: s[i].copy_(t), params["layers"], layer)
         del layer
     if cfg.family == "hybrid":
@@ -103,7 +108,9 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
     normal, std 1/sqrt(fan_in); embeddings std 0.02), drawn from a
     `torch.Generator` seeded with `seed` on `device`, one layer at a time
     into the (L, ...) stacks.  The values differ from
-    `repro.models.init_params`; convert those to compare."""
+    `repro.models.init_params`; convert those to compare.  On
+    `device="meta"` the tree holds shapes and dtypes only, drawn from
+    nothing (the counterpart of `jax.eval_shape(init_params)`)."""
     return _init(cfg, seed, device, lambda tree: tree)
 
 
@@ -130,9 +137,22 @@ def _layer_slice(stacked, i: int):
     return stacked[i]
 
 
+def _use(params, name: str, cfg: ModelConfig, index=None):
+    """`params[name]` (layer `index` of the stacks, if given) as the layers
+    compute with it: inside a `MeshContext`, gathered from this rank's
+    blocks just before use (`MeshContext.materialize`; the identity for
+    replicated parameters), else the tree itself."""
+    ctx = current_ctx()
+    if ctx is None:
+        tree = params[name]
+        return tree if index is None else _layer_slice(tree, index)
+    return ctx.materialize(params[name], name, cfg, index)
+
+
 def _unembed(params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
     """Logits in the model dtype (the reference's einsum), not yet f32."""
-    w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+    w = _use(params, "embed", cfg).T if cfg.tie_embeddings \
+        else _use(params, "unembed", cfg)
     return h @ w.to(h.dtype)
 
 
@@ -147,7 +167,7 @@ def _embed_inputs(params, batch: dict, cfg: ModelConfig):
     if cfg.modality == "vlm":
         tokens = batch["tokens"]                      # (B, S - P)
         patches = batch["patches"].to(dt)             # (B, P, D)
-        te = params["embed"][tokens].to(dt)
+        te = _use(params, "embed", cfg)[tokens].to(dt)
         h = torch.cat([patches, te], dim=1)
         mask = torch.cat([torch.zeros(patches.shape[:2], dtype=torch.bool,
                                       device=h.device),
@@ -157,14 +177,15 @@ def _embed_inputs(params, batch: dict, cfg: ModelConfig):
         h = batch["frames"].to(dt)                    # (B, S, D)
         mask = torch.ones(h.shape[:2], dtype=torch.bool, device=h.device)
     else:
-        h = params["embed"][batch["tokens"]].to(dt)
+        h = _use(params, "embed", cfg)[batch["tokens"]].to(dt)
         mask = torch.ones(h.shape[:2], dtype=torch.bool, device=h.device)
     B, S, _ = h.shape
     positions = torch.arange(S, device=h.device)[None, :].expand(B, S)
     return h, positions, mask
 
 
-def _shared_attn_block(cfg: ModelConfig, h, sp, positions):
+def _shared_attn_block(cfg: ModelConfig, h, params, positions):
+    sp = _use(params, "shared_attn", cfg)
     a = attention(sp["attn"], rms_norm(sp["attn_norm"], h, cfg.norm_eps),
                   cfg, positions, window=cfg.attn_window)
     h = h + a
@@ -207,7 +228,9 @@ def forward(params: dict, batch: dict, cfg: ModelConfig):
     h, positions, mask = _embed_inputs(params, batch, cfg)
     attn_mask = hybrid_attn_mask(cfg)
 
-    def body(h, lp, use_attn):
+    def body(h, i, use_attn):
+        # gathered here, so that remat gathers again in the backward
+        lp = _use(params, "layers", cfg, i)
         if cfg.family in ("dense", "moe"):
             a = attention(lp["attn"],
                           rms_norm(lp["attn_norm"], h, cfg.norm_eps),
@@ -222,16 +245,16 @@ def forward(params: dict, batch: dict, cfg: ModelConfig):
         h = h + mamba2_block(lp["mamba"], rms_norm(lp["norm"], h,
                                                    cfg.norm_eps), cfg)
         if use_attn:
-            h = _shared_attn_block(cfg, h, params["shared_attn"], positions)
+            h = _shared_attn_block(cfg, h, params, positions)
         return pshard(h, "act_btd"), 0.0
 
     body = _remat(cfg, body)
     aux = 0.0
     for i in range(cfg.num_layers):
         # the MoE aux summed in layer order, in f32
-        h, a = body(h, _layer_slice(params["layers"], i), attn_mask[i])
+        h, a = body(h, i, attn_mask[i])
         aux = aux + a
-    h = rms_norm(params["final_norm"], h, cfg.norm_eps)
+    h = rms_norm(_use(params, "final_norm", cfg), h, cfg.norm_eps)
     logits = _unembed(params, cfg, h).to(DTYPES[cfg.logit_dtype])
     logits = pshard(logits, "act_btv")
     return logits, aux, mask
@@ -248,9 +271,11 @@ def loss_fn(params: dict, batch: dict, cfg: ModelConfig):
     and the ce is summed over it (`psum`; the aux is global already), so
     loss and metrics are the whole batch's on every rank, while the
     gradient of this rank's loss is its share of the whole batch's (the
-    train step sums the shares)."""
+    train step sums the shares).  Rows replicated over DP
+    (`MeshContext.row_group` is None) are the whole batch: nothing is
+    summed."""
     ctx = current_ctx()
-    group = ctx.dp_group() if ctx is not None else None
+    group = ctx.row_group() if ctx is not None else None
     logits, aux, mask = forward(params, batch, cfg)
     labels = batch["labels"]
     lw = mask & (labels >= 0)
@@ -284,7 +309,8 @@ def prefill(params: dict, batch: dict, cfg: ModelConfig, max_seq: int):
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
                device="cuda") -> dict:
-    """On `device`: {"pos": 0-d int32} and, by family,
+    """On `device` (on "meta": shapes and dtypes only): {"pos": 0-d
+    int32} and, by family,
     dense and moe: "k"/"v" (L, batch, Hkv, max_seq, hd);
     ssm: "ssm": {"state": (L, batch, H, P, N), "conv": (L, batch, K-1, C)};
     hybrid: "ssm", and "k"/"v" (L // attn_every, batch, Hkv, w, hd) with
@@ -323,10 +349,10 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
     if cfg.modality == "audio" and cfg.frame_embed:
         h = tokens.to(dt)
     else:
-        h = params["embed"][tokens].to(dt)            # (B,1,D)
+        h = _use(params, "embed", cfg)[tokens].to(dt)  # (B,1,D)
     if cfg.family in ("dense", "moe"):
         for i in range(cfg.num_layers):
-            lp = _layer_slice(params["layers"], i)
+            lp = _use(params, "layers", cfg, i)
             x = rms_norm(lp["attn_norm"], h, cfg.norm_eps)
             a, _, _ = attention_decode(lp["attn"], x, cfg, cache["k"][i],
                                        cache["v"][i], pos)
@@ -341,7 +367,7 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
             h = h + m
     else:
         h = _ssm_decode_layers(params, cache, h, cfg)
-    h = rms_norm(params["final_norm"], h, cfg.norm_eps)
+    h = rms_norm(_use(params, "final_norm", cfg), h, cfg.norm_eps)
     logits = _unembed(params, cfg, h)
     return logits[:, 0].float(), dict(cache, pos=pos + 1)
 
@@ -353,13 +379,12 @@ def _ssm_decode_layers(params, cache, h, cfg: ModelConfig):
     ssm = cache["ssm"]
     attn_mask = hybrid_attn_mask(cfg)
     if cfg.family == "hybrid":
-        sp = params["shared_attn"]
         w = cache["k"].shape[3]
         wpos = torch.clamp(pos, max=w - 1)    # position in the rolling window
         full = pos >= w
     slot = -1
     for i in range(cfg.num_layers):
-        lp = _layer_slice(params["layers"], i)
+        lp = _use(params, "layers", cfg, i)
         out, c2 = mamba2_decode(lp["mamba"],
                                 rms_norm(lp["norm"], h, cfg.norm_eps),
                                 _layer_slice(ssm, i), cfg)
@@ -376,6 +401,7 @@ def _ssm_decode_layers(params, cache, h, cfg: ModelConfig):
                          cache["k"][slot])
         vc = torch.where(full, cache["v"][slot].roll(-1, dims=2),
                          cache["v"][slot])
+        sp = _use(params, "shared_attn", cfg)
         x = rms_norm(sp["attn_norm"], h, cfg.norm_eps)
         a, kc, vc = attention_decode(sp["attn"], x, cfg, kc, vc, wpos)
         cache["k"][slot].copy_(kc)

@@ -15,7 +15,14 @@ tokens.  `moe_impl="shard_map"` is the reference's expert-parallel path
 (`_moe_shard_map`): local routing and capacity, an all-to-all of the
 expert blocks there and back, the local experts on (E_l, D, F_l) slices.
 It takes `_moe_gspmd` where the reference does: outside a context, when
-the experts or F do not tile the mesh, and for int8 weights.
+the experts or F do not tile the mesh, and for int8 weights; and for a
+batch replicated over DP (`MeshContext.local_batch`).
+
+Over TP each rank computes its F slice of every expert (TP-split
+parameters, `dist.sharding.TPLocal`, or on the EP path a slice of
+replicated ones): the expert GEMMs' input and the gates enter the TP
+group (their grads are summed over it) and the combined output is
+summed over it.
 """
 
 from __future__ import annotations
@@ -26,7 +33,7 @@ import torch.distributed._functional_collectives as fc
 import torch.nn.functional as F
 
 from ..dist.context import current_ctx
-from ..dist.sharding import pmean, psum
+from ..dist.sharding import pmean, psum, tp_enter, tp_group, tp_slice
 from .config import ModelConfig
 from .layers import dense_init, init_mlp, mlp, pshard
 from .quant import is_quantized, wcast
@@ -178,7 +185,10 @@ def _capacity(cfg: ModelConfig, T: int) -> int:
 def _expert_counts(expert_idx, E: int, group):
     """(before, total): per expert, the entries routed on the group's
     lower ranks and on all of them."""
-    counts = torch.bincount(expert_idx.reshape(-1), minlength=E)
+    flat = expert_idx.reshape(-1)
+    # a scatter, not bincount: its output's shape is E's alone
+    counts = torch.zeros(E, dtype=flat.dtype, device=flat.device
+                         ).scatter_add_(0, flat, torch.ones_like(flat))
     every = [torch.empty_like(counts)
              for _ in range(dist.get_world_size(group))]
     dist.all_gather(every, counts, group=group)
@@ -191,7 +201,7 @@ def _moe_gspmd(params, x: torch.Tensor, cfg: ModelConfig):
     E, K = cfg.num_experts, cfg.experts_per_token
     T = B * S
     ctx = current_ctx()
-    group = ctx.dp_group() if ctx is not None else None
+    group = ctx.row_group() if ctx is not None else None
     xf = x.reshape(T, D)
     gate_vals, expert_idx, aux = _route(params, xf, cfg, group)
     if group is None:
@@ -203,14 +213,21 @@ def _moe_gspmd(params, x: torch.Tensor, cfg: ModelConfig):
             expert_idx, gate_vals, T, E, K, C,
             *_expert_counts(expert_idx, E, group))
 
+    tp = tp_group(params)               # the experts' F split over TP
+    xin = xf if tp is None else tp_enter(xf, tp)
+    if tp is not None:
+        gbuf = tp_enter(gbuf, tp)
     # gather -> (E, C, D); the pad id T reads a zero row
-    xe = torch.cat([xf, xf.new_zeros((1, D))])[buf]
+    xe = torch.cat([xin, xin.new_zeros((1, D))])[buf]
     xe = pshard(xe, "moe_ecd")
     ye = _experts(xe, wcast(params["w_gate"], xe.dtype),
                   wcast(params["w_up"], xe.dtype),
                   wcast(params["w_down"], xe.dtype), cfg.activation)
     ye = ye * gbuf[..., None].to(ye.dtype)
-    y = _combine(ye, slot).reshape(B, S, D)
+    y = _combine(ye, slot)
+    if tp is not None:
+        y = psum(y, tp)
+    y = y.reshape(B, S, D)
     if "shared" in params:
         y = y + mlp(params["shared"], x, cfg.activation)
     return y, aux
@@ -239,25 +256,39 @@ def _moe_shard_map(params, x: torch.Tensor, cfg: ModelConfig, ctx):
     E, K, D = cfg.num_experts, cfg.experts_per_token, cfg.d_model
     n_ep, n_tp = ctx.size(pol.ep_axes), ctx.size(pol.tp_axis)
     if E % n_ep or (n_tp > 1 and cfg.moe_d_ff % n_tp) \
-            or is_quantized(params["w_gate"]):
-        return _moe_gspmd(params, x, cfg)   # shapes don't tile
+            or is_quantized(params["w_gate"]) or not ctx.rows_split:
+        # shapes don't tile; or the rows are replicated, which the
+        # reference's shard_map cannot take and its GSPMD path computes
+        return _moe_gspmd(params, x, cfg)
 
     # x: this rank's rows (B_l, S, D); the local experts are E_l of E
-    # over EP and F_l of F over TP, sliced from the replicated stacks
+    # over EP and F_l of F over TP: sliced from TP-split parameters'
+    # stacks (F_l columns already), or from replicated ones, whose F
+    # slice's grad is made whole over TP again (`tp_slice`)
     Bl, S, _ = x.shape
     Tl = Bl * S
     El, Fl = E // n_ep, cfg.moe_d_ff // n_tp
-    e0, f0 = ctx.index(pol.ep_axes) * El, ctx.index(pol.tp_axis) * Fl
-    wg = params["w_gate"][e0:e0 + El, :, f0:f0 + Fl]
-    wu = params["w_up"][e0:e0 + El, :, f0:f0 + Fl]
-    wd = params["w_down"][e0:e0 + El, f0:f0 + Fl]
+    e0, f_i = ctx.index(pol.ep_axes) * El, ctx.index(pol.tp_axis)
+    tp = ctx.group(pol.tp_axis) if n_tp > 1 else None
+
+    def local(w, fdim):
+        w = w[e0:e0 + El]
+        if tp is not None and w.shape[fdim] != Fl:
+            w = tp_slice(w, fdim, tp, n_tp, f_i)
+        return w
+    wg = local(params["w_gate"], -1)
+    wu = local(params["w_up"], -1)
+    wd = local(params["w_down"], -2)
     ep_group = ctx.group(pol.ep_axes)
 
     xf = x.reshape(Tl, D)
     gate_vals, expert_idx, aux = _route(params, xf, cfg)
     C = _capacity(cfg, Tl)
     buf, gbuf, slot = _dispatch_tables(expert_idx, gate_vals, Tl, E, K, C)
-    xe = torch.cat([xf, xf.new_zeros((1, D))])[buf]          # (E, C, D)
+    xin = xf if tp is None else tp_enter(xf, tp)
+    if tp is not None:
+        gbuf = tp_enter(gbuf, tp)
+    xe = torch.cat([xin, xin.new_zeros((1, D))])[buf]        # (E, C, D)
     # exchange: every rank sends each expert block home, and holds its
     # experts' blocks from every rank in rank order: (E_l, C·n_ep, D)
     xe = _all_to_all(xe, ep_group)
@@ -269,8 +300,8 @@ def _moe_shard_map(params, x: torch.Tensor, cfg: ModelConfig, ctx):
     ye = _all_to_all(ye, ep_group).reshape(E, C, D)
     ye = ye * gbuf[..., None].to(ye.dtype)
     yf = _combine(ye, slot)
-    if n_tp > 1:
-        yf = psum(yf, ctx.group(pol.tp_axis))
+    if tp is not None:
+        yf = psum(yf, tp)
     aux = pmean(aux, ep_group)
     y = yf.reshape(Bl, S, D)
     if "shared" in params:

@@ -19,11 +19,12 @@ tensors, not `torch.optim`, so that the reference's rules hold exactly:
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import torch
 
-from ..tree import tree_leaves, tree_map, tree_unzip
+from ..tree import tree_leaves, tree_map, tree_map_with_path, tree_unzip
 
 
 @dataclass(frozen=True)
@@ -56,8 +57,11 @@ def global_norm(tree) -> torch.Tensor:
                           for g in tree_leaves(tree)))
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    norm = global_norm(grads)
+def clip_by_global_norm(grads, max_norm: float, shards=None):
+    """`grads` scaled to a global norm of at most `max_norm`, and the norm
+    before: with `shards` (a `MeshContext` that cut the tree) the whole
+    tree's (`MeshContext.global_norm`)."""
+    norm = global_norm(grads) if shards is None else shards.global_norm(grads)
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
     return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), norm
 
@@ -120,18 +124,30 @@ def adafactor_init(params, cfg: OptimizerConfig = OptimizerConfig()):
     return {"stats": tree_map(one, params), "count": count}
 
 
-def adafactor_update(grads, opt_state, params, cfg: OptimizerConfig):
+def adafactor_update(grads, opt_state, params, cfg: OptimizerConfig,
+                     shards=None):
+    """With `shards` (a `MeshContext` that cut the tree) each leaf is this
+    rank's block, and its means over the factored dims and the whole leaf
+    are summed over the ranks holding the other blocks."""
     count = opt_state["count"] + 1
     t = count.float()
     beta2 = 1.0 - t ** (-cfg.decay_rate)
 
-    def upd(g, p, stat):
+    def upd(path, g, p, stat):
+        def mean(x, dim, pdim, keepdim=False):
+            # the mean over param dim `pdim` of x (dim `dim` of x)
+            if shards is None:
+                return torch.mean(x, dim=dim, keepdim=keepdim)
+            n = shards.full_shape(path, p)[pdim]
+            return shards.sum_blocks(torch.sum(x, dim=dim, keepdim=keepdim),
+                                     path, p, (pdim,)) / n
+
         g32 = g.float()
         g2 = torch.square(g32) + 1e-30
         if "vr" in stat:
-            vr = beta2 * stat["vr"] + (1 - beta2) * torch.mean(g2, dim=-1)
-            vc = beta2 * stat["vc"] + (1 - beta2) * torch.mean(g2, dim=-2)
-            rfac = vr / torch.mean(vr, dim=-1, keepdim=True)
+            vr = beta2 * stat["vr"] + (1 - beta2) * mean(g2, -1, -1)
+            vc = beta2 * stat["vc"] + (1 - beta2) * mean(g2, -2, -2)
+            rfac = vr / mean(vr, -1, -2, keepdim=True)
             step = g32 / (torch.sqrt(rfac)[..., None]
                           * torch.sqrt(vc)[..., None, :] + cfg.eps)
             new = {"vr": vr, "vc": vc}
@@ -140,7 +156,13 @@ def adafactor_update(grads, opt_state, params, cfg: OptimizerConfig):
             step = g32 / (torch.sqrt(v) + cfg.eps)
             new = {"v": v}
         # update clipping (Adafactor's RMS clip, over the whole leaf)
-        rms = torch.sqrt(torch.mean(torch.square(step)) + 1e-30)
+        if shards is None:
+            ms = torch.mean(torch.square(step))
+        else:
+            full = shards.full_shape(path, p)
+            ms = shards.sum_blocks(torch.sum(torch.square(step)), path,
+                                   p) / math.prod(full)
+        rms = torch.sqrt(ms + 1e-30)
         step = step / torch.clamp(rms, min=1.0)
         if p.dim() >= 2:
             step = step + cfg.weight_decay * p.float()
@@ -148,8 +170,8 @@ def adafactor_update(grads, opt_state, params, cfg: OptimizerConfig):
 
     # the stats tree holds a dict at each param's place: tree_map walks
     # the grads' tree and hands `upd` that dict whole
-    updates, stats = tree_unzip(tree_map(upd, grads, params,
-                                         opt_state["stats"]), 2)
+    updates, stats = tree_unzip(tree_map_with_path(
+        upd, grads, params, opt_state["stats"]), 2)
     return updates, {"stats": stats, "count": count}
 
 
@@ -165,12 +187,17 @@ def init_opt_state(params, cfg: OptimizerConfig):
 
 
 @torch.no_grad()
-def apply_optimizer(grads, opt_state, params, cfg: OptimizerConfig):
+def apply_optimizer(grads, opt_state, params, cfg: OptimizerConfig,
+                    shards=None):
     """(new params, new optimizer state, the grads' global norm before
-    clipping)."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+    clipping).  With `shards`, the `MeshContext` that cut the trees into
+    this rank's blocks, the norm and Adafactor's means are the whole
+    tree's (`MeshContext.global_norm`, `sum_blocks`); AdamW is
+    elementwise."""
+    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, shards)
     if cfg.name == "adafactor":
-        updates, new_state = adafactor_update(grads, opt_state, params, cfg)
+        updates, new_state = adafactor_update(grads, opt_state, params, cfg,
+                                              shards)
     else:
         updates, new_state = adamw_update(grads, opt_state, params, cfg)
     new_params = tree_map(lambda p, u: p + u.to(p.dtype), params, updates)

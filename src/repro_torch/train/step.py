@@ -10,13 +10,17 @@ no kernel: the kernels are forward-only and refuse a gradient, so train
 with `attn_impl="xla"` (or `"xla_chunked"`, `"xla_bhsd"`), as the
 reference does.
 
-Inside a `repro_torch.dist.sharding.MeshContext` the step is data
-parallel, what GSPMD gives the reference's step under a mesh: the
-parameters are replicated, each rank takes its rows of the global batch
-(`local_batch`), `loss_fn` makes loss and metrics the global batch's, and
-the grads are summed over the DP group before compression and the
-optimizer.  Ranks along the other dims hold the same rows and the same
-grads, and are not reduced over.
+Inside a `repro_torch.dist.sharding.MeshContext` the step is what GSPMD
+gives the reference's step under a mesh: each rank takes its rows of the
+global batch (`local_batch`; all of them when the DP ranks do not divide
+it), `loss_fn` makes loss and metrics the global batch's, and the grads
+are summed over the DP ranks that hold other rows (`reduce_grads`)
+before compression and the optimizer.  The state is either replicated
+or this rank's blocks (`MeshContext.shard_state`): then the model
+gathers each layer's FSDP blocks just before it runs and computes its
+matmuls split over TP, the grads come back to the blocks, and the
+optimizer updates the blocks with the whole tree's grad norm
+(`MeshContext.global_norm`).
 """
 
 from __future__ import annotations
@@ -24,7 +28,6 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
-import torch.distributed as dist
 
 from ..device import resolve
 from ..dist.context import current_ctx
@@ -45,7 +48,8 @@ def init_train_state(cfg: ModelConfig, tcfg: TrainConfig, seed: int = 0,
                      device="cuda") -> dict:
     """Fresh parameters (`init_params(cfg, seed, device)`), optimizer state
     and an int32 step counter, on `device`; raises without a card unless
-    `device` names the CPU."""
+    `device` names the CPU.  On "meta" the state holds shapes and dtypes
+    only (the reference's `jax.eval_shape(init_train_state)`)."""
     dev = resolve(device)
     params = init_params(cfg, seed=seed, device=dev)
     return {"params": params, "opt": init_opt_state(params, tcfg.optimizer),
@@ -63,6 +67,22 @@ def loss_and_grads(params: dict, batch: dict, cfg: ModelConfig):
                                     materialize_grads=True)
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
             tree_unflatten(params, grads))
+
+
+def _grads_of(params, blocks: list, cfg: ModelConfig, n: int):
+    """(loss, metrics, grads) of one batch (`n` = 1), or of `n`
+    microbatches: their grads summed into f32 zeros and divided by n, the
+    metrics empty."""
+    if n == 1:
+        return loss_and_grads(params, blocks[0], cfg)
+    gsum = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                          device=p.device), params)
+    loss_sum = 0.0
+    for b in blocks:
+        loss, _metrics, grads = loss_and_grads(params, b, cfg)
+        gsum = tree_map(torch.add, gsum, grads)
+        loss_sum = loss_sum + loss
+    return loss_sum / n, {}, tree_map(lambda g: g / n, gsum)
 
 
 def _to_device(batch: dict, device: torch.device) -> dict:
@@ -89,45 +109,24 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
         dev = state["step"].device
         batch = _to_device(batch, dev)
         ctx = current_ctx()
-        local = ctx.local_batch if ctx is not None else (lambda b: b)
-        if ctx is not None and cfg.family == "moe" \
-                and cfg.moe_impl == "shard_map" \
-                and ctx.size(ctx.pol.tp_axis) > 1:
-            raise NotImplementedError(
-                "a train step through the expert-parallel MoE with TP > 1: "
-                "each model rank holds only its F slice of the expert "
-                "grads and its share of the router's, and the step sums "
-                "grads over DP only")
-        if tcfg.microbatches > 1:
-            n = tcfg.microbatches
-            mbatches = {k: v.reshape(n, v.shape[0] // n, *v.shape[1:])
-                        for k, v in batch.items()}
-            gsum = tree_map(lambda p: torch.zeros(p.shape,
-                                                  dtype=torch.float32,
-                                                  device=p.device), params)
-            loss_sum = 0.0
-            for i in range(n):
-                loss, _metrics, grads = loss_and_grads(
-                    params, local({k: v[i] for k, v in mbatches.items()}),
-                    cfg)
-                gsum = tree_map(torch.add, gsum, grads)
-                loss_sum = loss_sum + loss
-            grads = tree_map(lambda g: g / n, gsum)
-            loss = loss_sum / n
-            metrics = {}
+        n = tcfg.microbatches
+        blocks = [batch] if n == 1 else [
+            {k: v.reshape(n, v.shape[0] // n, *v.shape[1:])[i]
+             for k, v in batch.items()} for i in range(n)]
+        if ctx is None:
+            loss, metrics, grads = _grads_of(params, blocks, cfg, n)
         else:
-            loss, metrics, grads = loss_and_grads(params, local(batch), cfg)
-        group = ctx.dp_group() if ctx is not None else None
-        if group is not None:
-            for g in tree_leaves(grads):
-                dist.all_reduce(g, group=group)
+            with ctx.rows(blocks[0]):
+                loss, metrics, grads = _grads_of(
+                    params, [ctx.local_batch(b) for b in blocks], cfg, n)
+                grads = ctx.reduce_grads(grads)
 
         if tcfg.grad_compression:
             from ..dist.compression import compress_decompress
             grads = compress_decompress(grads)
 
         new_params, new_opt, gnorm = apply_optimizer(
-            grads, state["opt"], params, tcfg.optimizer)
+            grads, state["opt"], params, tcfg.optimizer, shards=ctx)
         new_state = {"params": new_params, "opt": new_opt,
                      "step": state["step"] + 1}
         out_metrics = {"loss": loss.float(), "grad_norm": gnorm.float(),

@@ -50,11 +50,13 @@ def tree_unzip(tree, n: int) -> tuple:
     return tree
 
 
-def tree_map_with_path(fn, tree, prefix: str = ""):
-    """`fn(name, leaf)` over the leaves of `tree`, names as in
-    `tree_leaves_with_path` (`jax.tree_util.tree_map_with_path`)."""
+def tree_map_with_path(fn, tree, *rest, prefix: str = ""):
+    """`fn(name, leaf, *rest_leaves)` over the leaves of `tree` and of the
+    same-shaped `rest`, names as in `tree_leaves_with_path`
+    (`jax.tree_util.tree_map_with_path`), each under `prefix`."""
     if isinstance(tree, dict):
-        return {k: tree_map_with_path(fn, v, f"{prefix}/{k}" if prefix
+        return {k: tree_map_with_path(fn, v, *(r[k] for r in rest),
+                                      prefix=f"{prefix}/{k}" if prefix
                                       else str(k))
                 for k, v in tree.items()}
-    return fn(prefix, tree)
+    return fn(prefix, tree, *rest)

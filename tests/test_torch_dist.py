@@ -161,8 +161,10 @@ def test_ep_moe_matches_reference_gspmd(world):
 
 def test_ep_moe_grads_through_the_all_to_alls(world):
     """d sum(y) / d params through both all-to-alls and the TP sum, summed
-    over the world: finite, and the single-device grads (the reference's
-    and the port's)."""
+    over the DP ranks (each TP rank's are whole: the F slice's grad is
+    gathered over TP, the gates' and the input's summed over it):
+    finite, and the single-device grads (the reference's and the
+    port's)."""
     _y, _aux, jg, cfg, x = world["moe"]["ep"]
     params = tree_map(lambda p: p.requires_grad_(True),
                       params_from_numpy(world["moe_params"]["ep"],

@@ -168,24 +168,6 @@ def test_to_placements_on_a_fake_device_mesh(world):
         assert ctx.index(("data", "model")) == world - 3
 
 
-def test_train_step_refuses_the_ep_path_with_tp():
-    """Inside a (4, 2) context a step through the EP MoE would sum partial
-    expert and router grads over DP only: it raises before any
-    collective; through gspmd routing it does not refuse."""
-    from repro_torch.configs import smoke_config
-    from repro_torch.train.step import (TrainConfig, init_train_state,
-                                        make_train_step)
-    cfg = smoke_config("phi3.5-moe-42b-a6.6b").scaled(
-        dtype="float32", moe_impl="shard_map")
-    state = init_train_state(cfg, TrainConfig(), device="cpu")
-    with fake_world(8):
-        mesh = init_device_mesh("cpu", (4, 2), mesh_dim_names=("data",
-                                                              "model"))
-        with tsh.MeshContext(mesh, cfg, tsh.ShardingPolicy.for_mesh(mesh)):
-            with pytest.raises(NotImplementedError, match="TP > 1"):
-                make_train_step(cfg, TrainConfig())(state, {})
-
-
 def test_mesh_builders_keep_the_reference_shapes():
     """`make_production_mesh`'s 16x16 and 2x16x16 and the largest grid of
     `make_mesh_for_devices`, as the reference's."""

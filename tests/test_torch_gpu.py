@@ -21,7 +21,7 @@ from repro_torch.serve.engine import Request, ServeConfig, ServingEngine
 from repro_torch.train.step import loss_and_grads
 from repro_torch.workload.generators import OpStream, WorkloadSpec
 from repro_torch.models.moe import init_moe
-from torch_dist_workers import gpu_ep_moe, gpu_gpipe, run_ranks
+from torch_dist_workers import gpu_ep_moe, gpu_gpipe, gpu_sharded, run_ranks
 from torch_stream_checks import (STREAM_CHECKS, TRANSFORM_CASES,
                                  assert_transforms_equal, batch_draws,
                                  transform_on)
@@ -512,3 +512,52 @@ def test_ep_moe_over_nccl_ranks(cuda, tmp_path):
         assert r["grads_finite"]
         for err, scale in r["err_grads"]:
             assert err <= 1e-5 * max(scale, 1.0)
+
+
+def test_sharded_parameters_over_nccl_ranks(cuda, tmp_path):
+    """Phase 14(d) at smoke widths, TP over every card: a train step with
+    each rank's blocks of the state equals the replicated one (1e-5), and
+    a bf16 prefill and 4 decode steps on the local heads launch flash
+    wgmma and decode split and agree with the replicated path at the
+    bf16 tolerance."""
+    for r in run_ranks(gpu_sharded, torch.cuda.device_count(), tmp_path,
+                       timeout=300, backend="nccl"):
+        np.testing.assert_allclose(r["sharded"], r["plain"], rtol=1e-5)
+        assert r["serve_err"] <= TOL["bfloat16"]
+        assert r["launches"]["flash.wgmma"] > 0
+        assert r["launches"]["decode.split"] > 0
+
+
+def test_dryrun_memory_of_a_card_step(cuda):
+    """Phase 14(c) at smoke widths: the dry-run's argument_bytes of a
+    train step on a world of one equal the card's train state and batch
+    bytes, and FlopCounterMode counts the same FLOPs for the step on the
+    card as the dry-run's fake step does."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.shapes import ShapeSpec
+    from repro_torch.train.optim import OptimizerConfig
+    from repro_torch.train.step import (TrainConfig, init_train_state,
+                                        make_train_step)
+    from repro_torch.tree import tree_leaves
+    cfg = smoke_config("smollm-360m")
+    spec = ShapeSpec("card_step", "train", 64, 4)
+    tcfg = TrainConfig(optimizer=OptimizerConfig())
+    state = init_train_state(cfg, tcfg, device="cuda")
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 64))
+                                 .astype(np.int32)).cuda()
+             for k in ("tokens", "labels")}
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in tree_leaves(state) + tree_leaves(batch))
+    with FlopCounterMode(display=False) as fcm:
+        make_train_step(cfg, tcfg)(state, batch)
+    mem = dryrun.step_memory(cfg, spec)
+    assert mem.argument_size_in_bytes == nbytes
+    with dryrun.fake_world(1):
+        from repro_torch.dist.sharding import ShardingPolicy
+        from repro_torch.launch.mesh import make_mesh_for_devices
+        mesh = make_mesh_for_devices(1, device_type="cpu")
+        flops = dryrun._run(cfg, spec, mesh, ShardingPolicy.for_mesh(mesh))[0]
+    assert flops == fcm.get_total_flops()

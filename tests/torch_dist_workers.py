@@ -1,5 +1,6 @@
 """Rank bodies of the multi-process tests of `repro_torch.dist`
-(tests/test_torch_dist.py, tests/test_torch_dist_train.py) and the
+(tests/test_torch_dist.py, tests/test_torch_dist_train.py,
+tests/test_torch_dist_tp.py) and the
 spawner that runs them: gloo ranks, one thread each, a `file://`
 rendezvous in the test's own directory, a deadline.  Each body runs in
 a spawned process, takes numpy inputs made by the test, and returns
@@ -21,13 +22,15 @@ from torch.distributed.tensor import Replicate, distribute_tensor
 from repro_torch.convert import params_from_numpy, train_state_from_numpy
 from repro_torch.data.pipeline import TokenStream
 from repro_torch.dist.pipeline import gpipe
-from repro_torch.dist.sharding import MeshContext, ShardingPolicy
+from repro_torch.dist.sharding import MeshContext, ShardingPolicy, TPLocal
+from repro_torch.models import decode_step, forward, init_cache, prefill
 from repro_torch.models.layers import attention_decode, pshard
 from repro_torch.models.moe import moe_ffn
 from repro_torch.models.quant import quantize_tree
 from repro_torch.train.optim import OptimizerConfig
 from repro_torch.train.step import TrainConfig, make_train_step
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import (tree_leaves, tree_leaves_with_path, tree_map,
+                               tree_map_with_path)
 
 
 def _entry(rank, fn, world, init_file, out_dir, backend, args):
@@ -70,15 +73,16 @@ def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a))
 
 
-def _grads(fn, params):
-    """d fn(params) / d params, summed over every rank of the world."""
+def _grads(fn, params, group):
+    """d fn(params) / d params, summed over the ranks of `group` (the DP
+    ranks: those of one TP group hold the same grads)."""
     leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
     with torch.enable_grad():
         out = fn(leaves)
         grads = torch.autograd.grad(out, tree_leaves(leaves),
                                     materialize_grads=True)
     for g in grads:
-        dist.all_reduce(g)
+        dist.all_reduce(g, group=group)
     return list(grads)
 
 
@@ -109,16 +113,17 @@ def tanh_stages(W, x):
 
 def _moe_case(mesh, cfg, params, x, grads: bool):
     """Under the (4,2) context: shard_map and gspmd on this rank's rows,
-    and (`grads`) the grads of sum(y) through the all-to-alls summed over
-    the world; the single-device path on this rank's rows alone."""
+    and (`grads`) the grads of sum(y) through the all-to-alls and the TP
+    sum, summed over the DP ranks; the single-device path on this rank's
+    rows alone."""
     ctx = MeshContext(mesh, cfg, ShardingPolicy.for_mesh(mesh))
     xl = ctx.local_batch(x)
     sm, gs = cfg.scaled(moe_impl="shard_map"), cfg.scaled(moe_impl="gspmd")
     with ctx:
         y_sm, aux_sm = moe_ffn(params, xl, sm)
         y_gs, aux_gs = moe_ffn(params, xl, gs)
-        g_sm = _grads(lambda p: moe_ffn(p, xl, sm)[0].sum(), params) \
-            if grads else None
+        g_sm = _grads(lambda p: moe_ffn(p, xl, sm)[0].sum(), params,
+                      ctx.dp_group()) if grads else None
     y_shard, aux_shard = moe_ffn(params, xl, sm)       # no context
     return {"y_sm": y_sm, "aux_sm": aux_sm, "y_gs": y_gs, "aux_gs": aux_gs,
             "g_sm": g_sm, "y_shard": y_shard, "aux_shard": aux_shard}
@@ -267,3 +272,173 @@ def gpu_ep_moe(rank, world, cfg, params):
             "err_grads": [(float((g - f).abs().max()), float(f.abs().max()))
                           for g, f in zip(res["g_sm"], g_full)],
             "device": str(res["y_sm"].device)}
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_dist_tp.py: a replicated (indivisible) batch, and
+# compute with TP/FSDP-sharded parameters
+# ---------------------------------------------------------------------------
+
+
+def _whole(ctx, tree):
+    """Every leaf of a tree of this rank's blocks gathered whole."""
+    with torch.no_grad():
+        return tree_map_with_path(
+            lambda path, leaf: ctx._gather(leaf, path, None, None), tree)
+
+
+def _stored(ctx, local, full) -> dict:
+    """This rank's stored parameter bytes, and the whole tree's bytes
+    over each leaf's shard factor (the sizes of the mesh dims its spec
+    names)."""
+    got = want = 0
+    for (path, t), (_, f) in zip(tree_leaves_with_path(local),
+                                 tree_leaves_with_path(full)):
+        spec = ctx._layout[path][0]
+        factor = int(np.prod([ctx.size(e) for e in spec if e is not None]))
+        got += t.numel() * t.element_size()
+        want += f.numel() * f.element_size() // factor
+    return {"stored": got, "whole_over_factor": want,
+            "whole": sum(f.numel() * f.element_size()
+                         for f in tree_leaves(full))}
+
+
+def _own_rows(ctx, x):
+    """This rank's block of the leading dim of `x` over the DP dims, cut
+    here rather than by the context: what a caller that passes its own
+    rows of a split batch gives the model."""
+    n, i = ctx.size(ctx.pol.dp_axes), ctx.index(ctx.pol.dp_axes)
+    b = x.shape[0] // n
+    return x[i * b:(i + 1) * b]
+
+
+def _serve_case(ctx, cfg, full, batch, toks, T):
+    """forward, prefill and len(toks[0]) decode steps with this rank's
+    blocks of the parameters and of the cache, on this rank's rows (cut
+    by `_own_rows`, outside `MeshContext.rows`)."""
+    local = ctx.shard_params(full)
+    res = _stored(ctx, local, full)
+    # the modules that compute TP-split: layer 0's, the shared block's
+    with torch.no_grad():
+        lp = ctx.materialize(local["layers"], "layers", cfg, 0)
+        if "shared_attn" in local:
+            lp.update(ctx.materialize(local["shared_attn"], "shared_attn",
+                                      cfg))
+    res["tp_modules"] = sorted(k for k, v in lp.items()
+                               if isinstance(v, TPLocal))
+    with ctx, torch.no_grad():
+        rows = {k: _own_rows(ctx, _t(v)) for k, v in batch.items()}
+        logits, aux, _ = forward(local, rows, cfg)
+        res.update(logits=logits, aux=torch.as_tensor(aux),
+                   prefill=prefill(local, rows, cfg, T))
+        tl = _own_rows(ctx, _t(toks))
+        cache = ctx.shard_cache(init_cache(cfg, toks.shape[0], T,
+                                           device="cpu"))
+        steps = []
+        for t in range(tl.shape[1]):
+            lg, cache = decode_step(local, cache, tl[:, t:t + 1], cfg)
+            steps.append(lg)
+        res["decode"] = torch.stack(steps)
+    return res
+
+
+def tp_cases(rank, world, cases):
+    """Each case on a (data, model) mesh of its shape, in one context:
+    `train` runs steps from a numpy state, sharded (`shard_state`) or
+    replicated, and rank 0 returns the final parameters gathered whole;
+    then `serve` runs `_serve_case` with sharded parameters."""
+    out = {}
+    for name, c in cases.items():
+        mesh = init_device_mesh("cpu", c["mesh"],
+                                mesh_dim_names=("data", "model"))
+        cfg = c["cfg"]
+        ctx = MeshContext(mesh, cfg, ShardingPolicy.for_mesh(mesh))
+        res = {}
+        if "train" in c:
+            tr = c["train"]
+            state = train_state_from_numpy(tr["state"], device="cpu")
+            if tr["sharded"]:
+                state = ctx.shard_state(state)
+            step = make_train_step(cfg, TrainConfig(
+                optimizer=OptimizerConfig(name=tr.get("optimizer", "adamw"),
+                                          lr=1e-3)))
+            losses, norms = [], []
+            with ctx:
+                for b in tr["batches"]:
+                    state, m = step(state, b)
+                    losses.append(float(m["loss"]))
+                    norms.append(float(m["grad_norm"]))
+            params = _whole(ctx, state["params"]) if tr["sharded"] \
+                else state["params"]
+            res.update(loss=losses, grad_norm=norms,
+                       params=params if rank == 0 else None)
+        if "serve" in c:
+            full = params_from_numpy(c["serve"]["params"], device="cpu")
+            if c["serve"].get("int8"):
+                full = quantize_tree(full)
+            res.update(_serve_case(ctx, cfg, full, c["serve"]["batch"],
+                                   c["serve"]["tokens"], c["serve"]["T"]))
+        out[name] = res
+    return out
+
+
+def gpu_sharded(rank, world):
+    """chip_smoke.py phase 14(d) at smoke widths on a (1, world) data x
+    model mesh of cards (TP over every card): 2 f32 train steps with each
+    rank's blocks of the state against the replicated steps, and a bf16
+    prefill and 4 decode steps through the flash wgmma and decode split
+    kernels on the local heads against the replicated path, with the
+    sharded run's launches."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import init_params
+    from repro_torch.train.step import init_train_state
+    dev = torch.device("cuda", rank)
+    mesh = init_device_mesh("cuda", (1, world),
+                            mesh_dim_names=("data", "model"))
+    cfg = smoke_config("mistral-large-123b").scaled(dtype="float32")
+    tcfg = TrainConfig(optimizer=OptimizerConfig(lr=1e-3))
+    start = init_train_state(cfg, tcfg, seed=0, device=dev)
+    rng = np.random.default_rng(0)
+    batches = [{k: rng.integers(0, cfg.vocab_size, (4, 32)).astype(np.int32)
+                for k in ("tokens", "labels")} for _ in range(2)]
+    step = make_train_step(cfg, tcfg)
+    state, plain = tree_map(torch.clone, start), []
+    for b in batches:
+        state, m = step(state, b)
+        plain.append(float(m["loss"]))
+    ctx = MeshContext(mesh, cfg, ShardingPolicy.for_mesh(mesh))
+    state, sharded = ctx.shard_state(start), []
+    with ctx:
+        for b in batches:
+            state, m = step(state, b)
+            sharded.append(float(m["loss"]))
+
+    scfg = cfg.scaled(dtype="bfloat16", head_dim=64, attn_impl="pallas")
+    params = init_params(scfg, seed=1, device=dev)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, scfg.vocab_size, (2, 256)).astype(np.int32)).to(dev)}
+    toks = torch.from_numpy(rng.integers(0, scfg.vocab_size, (2, 4)).astype(
+        np.int32)).to(dev)
+
+    def run(p, cache):
+        out = [prefill(p, batch, scfg, 264)]
+        for t in range(toks.shape[1]):
+            lg, cache = decode_step(p, cache, toks[:, t:t + 1], scfg)
+            out.append(lg)
+        return torch.stack(out).float()
+    with torch.no_grad():
+        ref = run(params, init_cache(scfg, 2, 264, device=dev))
+        local = ctx.shard_params(params)
+        cache = ctx.shard_cache(init_cache(scfg, 2, 264, device=dev))
+        da_ops.zero_launches()
+        fa_ops.zero_launches()
+        with ctx:
+            got = run(local, cache)
+    return {"plain": plain, "sharded": sharded,
+            "serve_err": float((got - ref).abs().max()),
+            "launches": {**{f"flash.{k}": v for k, v in
+                            fa_ops.launches_by_variant.items()},
+                         **{f"decode.{k}": v for k, v in
+                            da_ops.launches_by_variant.items()}}}
