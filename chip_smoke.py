@@ -10,7 +10,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      nvcc each, started together;
   3. each kernel variant against its plain PyTorch version on the card,
      over the reference's test shapes and the shapes of SmolLM-360M,
-     DeepSeek-Coder-33B, Mamba2-2.7B and Zamba2-7B, f32 and bf16; each
+     DeepSeek-Coder-33B, Mamba2-2.7B and Zamba2-7B, and a TP-16 rank's
+     shapes (Mistral-Large's 6 and Phi-3.5-MoE's 2 q heads on one shared
+     KV head, 5 and 7 Mamba2 heads), f32 and bf16; each
      case runs on the variant that `ops.variant` picks for it (flash:
      wgmma for bf16 at hd 64/128, fma otherwise; ssd_scan: tc for bf16,
      fma for f32);
@@ -30,7 +32,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      same function (the port never calls it); decode_attention also at
      the full-context step's shape, at DeepSeek-Coder-33B's heads over
      a 16384-token cache, at the f32 shapes of phases 4 and 7, and at one
-     split fewer and more than its rule picks.  `ms`, `plain_ms` and
+     split fewer and more than its rule picks; every kernel at phase 3's
+     TP-16 rank shapes in bf16.  `ms`, `plain_ms` and
      `library_ms` are device time per call (the kernels' durations from
      torch.profiler); `call_ms` is CUDA-event time over back-to-back
      calls, which the host's launch cost bounds at small shapes;
@@ -126,9 +129,12 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      leaves out, and its wall time, beside the card's drawing
      `init_params` of SmolLM-360M; (b) the dry-run (a fake process group
      of 256 on the host) on smollm-360m x {train_4k, prefill_32k,
-     decode_32k}, mamba2-2.7b x long_500k (batch 1, replicated) and
-     gemma-7b x long_500k (the skip record): dominant term, memory per
-     device, counted FLOPs against `model_flops`, seconds; (c) the H100
+     decode_32k}, mamba2-2.7b x long_500k (batch 1, replicated), gemma-7b
+     x long_500k (the skip record) and mistral-large-123b x train_4k (the
+     vocab split and shared KV heads): dominant term, memory per device,
+     counted FLOPs against `model_flops`, the share of them TP
+     duplicates (`duplicate_flops`, from `dist.sharding.tp_plan`),
+     seconds; (c) the H100
      roofline on the card's numbers: `model_flops` of phase 9's step
      over phase 9's p50 (MFU against 989 TF/s), FlopCounterMode's count
      of one real step on the card over `model_flops` (the useful ratio),
@@ -140,7 +146,11 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      against its replicated losses (1e-5), the collective inventory of
      one step (`launch.hlo.CollectiveInventory`), and a bf16 SmolLM-360M
      prefill (2 x 2048, flash wgmma) and 8 decode steps (decode split)
-     on the local heads against the replicated path (TOL["bf16"]).
+     on the local heads against the replicated path (TOL["bf16"]); and
+     here, Mamba2-2.7B's block at full width in bf16 (B=2, S=2048) as
+     the 16 ranks of a head-parallel TP split compute it, one rank after
+     another on the card (ssd_scan tc at 5 heads), summed, against the
+     whole block (SSD_TOL["bf16"]).
 Phase 3 also checks, and phase 8 times, phase 11's attention shapes:
 Phi-3.5-MoE's 32/8 heads at hd 128 (bf16 decode over 8 x 512 cached
 tokens, the bf16 2048-token prefill, and the f32 shapes of 11(a)) and
@@ -157,8 +167,8 @@ counters are zeroed just before each and read just after it (phases 13
 and 14(d): in each rank's process, summed by the parent); every kernel
 variant of a serving path must have launched there, decode_attention on
 the store path's engine, decode and both flash variants on the moe path,
-flash fma on the dist path, flash wgmma and decode on the launch path,
-and none on
+flash fma on the dist path, flash wgmma, decode and ssd_scan tc on the
+launch path, and none on
 the training path (the kernels are forward-only, so training takes the
 eager attention path, as the reference's does) or on the workload path
 (no model runs there).  The
@@ -201,7 +211,9 @@ from repro_torch.convert import (params_from_numpy,  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, TokenStream  # noqa: E402
 from repro_torch.dist.compression import quantize_codes  # noqa: E402
 from repro_torch.dist.pipeline import gpipe  # noqa: E402
-from repro_torch.dist.sharding import MeshContext, ShardingPolicy  # noqa
+from repro_torch.dist.sharding import (MeshContext,  # noqa: E402
+                                       ShardingPolicy, tp_columns, tp_plan,
+                                       tp_share)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as da_ops  # noqa: E402
 from repro_torch.kernels.decode_attention.ref import \
@@ -221,6 +233,9 @@ from repro_torch.models import model as model_mod  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.config import ModelConfig  # noqa: E402
 from repro_torch.models.layers import dense_init  # noqa: E402
+from repro_torch.models.mamba2 import (init_mamba2, mamba2_block,  # noqa
+                                       mamba2_gated, mamba2_out)
+from repro_torch.models.model import hybrid_attn_mask  # noqa: E402
 from repro_torch.models.model import init_quantized_params  # noqa: E402
 from repro_torch.models.quant import is_quantized, quantize_weight  # noqa
 from repro_torch.serve.engine import (Request, ServeConfig,  # noqa: E402
@@ -309,6 +324,14 @@ FLASH_CASES = [
 ]
 PHI_DECODE, PHI_DECODE_F32, KIMI_DECODE = DECODE_CASES[-3:]
 PHI_FLASH, PHI_FLASH_F32, KIMI_FLASH = FLASH_CASES[-3:]
+# the heads one TP-16 rank serves (dist.sharding.tp_plan): Mistral-Large's
+# 6 q heads on its one shared KV head, Phi-3.5-MoE's 2, at phase 11's
+# serving shape; and their prefill attention at B=2, S=2048
+DECODE_TP16 = [(8, 6, 1, 512, 128, 256, 0), (8, 2, 1, 512, 128, 256, 0)]
+DECODE_CASES += DECODE_TP16
+FLASH_TP16 = [(2, 6, 1, 2048, 2048, 128, True, 0),
+              (2, 2, 1, 2048, 2048, 128, True, 0)]
+FLASH_CASES += FLASH_TP16
 SMOLLM_FLASH = (2, 15, 5, 2048, 2048, 64, True, 0)
 # the eager path rounds scores to bf16 before its softmax (up to ~2 % per
 # probability at |s| ~ 8) where the kernel keeps them f32; 32 layers
@@ -325,6 +348,11 @@ SSD_CASES = [
     # the main paths' f32 forwards at S=256: Mamba2-2.7B, Zamba2-7B
     (2, 256, 80, 64, 128, 128, False), (2, 256, 112, 64, 64, 128, False),
 ]
+# a TP-16 rank's scan (head-parallel Mamba2): Mamba2-2.7B's 5 of 80 heads
+# and Zamba2-7B's 7 of 112, part of one of the tc kernel's 10-head blocks
+SSD_TP16 = [(2, 2048, 5, 64, 128, 128, False),
+            (2, 2048, 7, 64, 64, 128, False)]
+SSD_CASES += SSD_TP16
 MAMBA_SHAPE = (2, 2048, 80, 64, 128, 128, False)
 MAMBA_256 = (2, 256, 80, 64, 128, 128, False)
 ZAMBA_256 = (2, 256, 112, 64, 64, 128, False)
@@ -1025,6 +1053,27 @@ def decode_and_ssd_timings(device, dec_len: int) -> dict:
         out[key] = time_ssd(case, f32, device, "fma")
         log("timing", f"ssd_scan fma f32 (b,s,h,p,n,chunk)={case[:6]}: "
             f"{out[key]}")
+    return out
+
+
+def tp16_timings(device) -> dict:
+    """Phase 8 at a TP-16 rank's kernel shapes, bf16: the decode and
+    prefill attention of Mistral-Large's and Phi-3.5-MoE's q heads on
+    their one shared KV head, and the scan of Mamba2-2.7B's and
+    Zamba2-7B's heads of a head-parallel block."""
+    bf16, out = torch.bfloat16, {}
+    for key, case in zip(("decode_mistral", "decode_phi"), DECODE_TP16):
+        out[key] = time_decode(case, bf16, device)
+        log("timing", f"decode_attention bf16 (B,H,Hkv,T,hd,len)={case[:6]} "
+            f"(a TP-16 rank): {out[key]}")
+    for key, case in zip(("flash_mistral", "flash_phi"), FLASH_TP16):
+        out[key] = time_flash(case, bf16, device, "wgmma", iters=20)
+        log("timing", f"flash_attention wgmma bf16 (B,H,Hkv,S,hd)="
+            f"{case[:4] + case[5:6]} causal (a TP-16 rank): {out[key]}")
+    for key, case in zip(("ssd_mamba2", "ssd_zamba2"), SSD_TP16):
+        out[key] = time_ssd(case, bf16, device, "tc")
+        log("timing", f"ssd_scan tc bf16 (b,s,h,p,n,chunk)={case[:6]} (a "
+            f"TP-16 rank, three launches): {out[key]}")
     return out
 
 
@@ -2502,9 +2551,11 @@ def dist_path(device) -> tuple[dict, dict]:
 # ---------------------------------------------------------------------------
 
 DRYRUN_DIR = Path(__file__).resolve().parent / "build" / "dryrun_torch"
+# mistral-large-123b x train_4k splits the vocab and shares KV heads over
+# TP, the KV exchange's backward included
 DRYRUN_CELLS = [("smollm-360m", "train_4k"), ("smollm-360m", "prefill_32k"),
                 ("smollm-360m", "decode_32k"), ("mamba2-2.7b", "long_500k"),
-                ("gemma-7b", "long_500k")]
+                ("gemma-7b", "long_500k"), ("mistral-large-123b", "train_4k")]
 # phase 9's step: 4 x 2048 tokens
 PHASE9_SPEC = ShapeSpec("phase9_step", "train", 2048, 4)
 
@@ -2548,31 +2599,47 @@ def shape_only_trees(device) -> None:
 
 
 def duplicate_flops(cfg: ModelConfig, spec, tp: int, dp: int) -> float:
-    """Forward FLOPs a device of a (dp, tp) mesh computes whole although
-    its TP group could share them, (1 - 1/tp) of the matmuls of the
-    leaves gathered whole: the unembedding (the vocab split), Mamba2's
-    in_proj and out_proj (the packed layout), and an attention whose KV
-    heads do not split over TP (its projections, and its scores and
-    values over the whole context, as the eager path computes them).  A
-    train step runs them 4 times (forward, remat forward, 2 backward)."""
+    """Forward FLOPs a device of a (dp, tp) mesh computes beyond its 1/tp
+    share of the matmuls TP could share: for each leaf the reference's
+    policy splits over TP, the columns a rank computes with
+    (`tp_columns` where `tp_plan` splits its kind, all of them where the
+    kind computes whole) less 1/tp of the leaf's.  The leaves: the
+    unembedding, the attention projections (and, computed whole, the
+    scores and values over the whole context, as the eager path computes
+    them) and Mamba2's in_proj and out_proj.  A train step runs them 4
+    times (forward, remat forward, 2 backward)."""
     rows = spec.global_batch // dp if spec.global_batch % dp == 0 \
         else spec.global_batch
     tok = rows * (1 if spec.kind == "decode" else spec.seq_len)
-    D, L, V = cfg.d_model, cfg.num_layers, cfg.vocab_size
-    f = 2 * tok * V * D
+    D, L = cfg.d_model, cfg.num_layers
+    plan = tp_plan(cfg, tp)
+
+    def extra(kind, key, size):
+        if plan[kind] == "whole":
+            return size * (1 - 1 / tp)
+        return sum(b - a for a, b in tp_columns(kind, key, size, cfg, tp, 0)) \
+            - size / tp
+    f = 2 * tok * D * extra("unembed", "unembed", cfg.vocab_size)
     if cfg.has_ssm:
-        G, N = cfg.ssm_groups, cfg.ssm_state
-        f += L * 2 * tok * D * (3 * cfg.d_inner + 2 * G * N + cfg.ssm_heads)
-    if cfg.family in ("dense", "moe") and cfg.num_kv_heads % tp:
+        Din = cfg.d_inner
+        packed = 2 * Din + 2 * cfg.ssm_groups * cfg.ssm_state + cfg.ssm_heads
+        f += L * 2 * tok * D * (extra("ssm", "in_proj", packed)
+                                + extra("ssm", "out_proj", Din))
+    if cfg.has_attention:
         H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-        f += L * 2 * tok * 2 * D * (H + Hkv) * hd
-        f += L * 4 * tok * H * spec.seq_len * hd
-    return f * (4 if spec.kind == "train" else 1) * (1 - 1 / tp)
+        n_attn = sum(hybrid_attn_mask(cfg)) if cfg.family == "hybrid" else L
+        f += n_attn * 2 * tok * D * sum(
+            extra("attention", k, size) for k, size in (
+                ("wq", H * hd), ("wk", Hkv * hd), ("wv", Hkv * hd),
+                ("wo", H * hd)))
+        if plan["attention"] == "whole":
+            f += n_attn * 4 * tok * H * spec.seq_len * hd * (1 - 1 / tp)
+    return f * (4 if spec.kind == "train" else 1)
 
 
 def dryrun_cells() -> None:
-    """14(b): the dry-run's cells on the host, each with the FLOPs its
-    gathered-whole leaves duplicate over TP (`duplicate_flops`)."""
+    """14(b): the dry-run's cells on the host, each with the FLOPs TP
+    duplicates on a device (`duplicate_flops`)."""
     for arch, shape in DRYRUN_CELLS:
         t0 = time.perf_counter()
         rec = dryrun.run_cell(arch, shape, "pod", DRYRUN_DIR, overwrite=True)
@@ -2595,8 +2662,8 @@ def dryrun_cells() -> None:
             f"counted {flops:.6g} FLOP per device x {rec['chips']} against "
             f"model_flops {r['model_flops']:.6g} (useful ratio "
             f"{r['useful_ratio']:.4g}); {dup:.6g} of the counted FLOP "
-            f"({dup / flops:.4f}) duplicated over TP by the leaves "
-            f"gathered whole; link "
+            f"({dup / flops:.4f}) duplicated over TP (TP leaves: "
+            f"{tp_plan(get_config(arch), 16)}); link "
             f"{rec['cost_extrapolated']['link_bytes']:.6g} B per device; "
             f"{secs:.1f} s")
 
@@ -2741,6 +2808,39 @@ def sharded_serve(world, device) -> tuple[dict, dict]:
                 rel_eager=rel, agree_eager=agree, tp=world), launches
 
 
+def mamba2_rank_shares(device, tp: int = 16) -> dict:
+    """14(d), on this card: one Mamba2-2.7B block at full width in bf16
+    (B=2, S=2048; one layer's parameters from a seed) through the tc scan,
+    as the tp ranks of a head-parallel split compute it: each rank's share
+    of the parameters (`tp_share`) and its work (`mamba2_gated`, then
+    `mamba2_out` with the norm's mean square summed from every rank's
+    partial sum), run one rank after another and summed in f32, against
+    the whole block.  The launches are the shares' only."""
+    cfg = get_config("mamba2-2.7b").scaled(attn_impl="pallas")
+    gen = torch.Generator(device=device).manual_seed(5)
+    params = init_mamba2(gen, cfg, torch.bfloat16, device)
+    x = randn(gen, (2, 2048, cfg.d_model), torch.bfloat16, device)
+    whole = mamba2_block(params, x, cfg)
+    shares = [tp_share(params, "ssm", cfg, tp, r) for r in range(tp)]
+    zero_launches()
+    gated = [mamba2_gated(p, x, cfg) for p in shares]
+    mean_sq = sum(torch.sum(torch.square(g.float()), dim=-1, keepdim=True)
+                  for g in gated) / cfg.d_inner
+    got = sum(mamba2_out(p, g, mean_sq, cfg).float()
+              for p, g in zip(shares, gated))
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    err = compare("14(d) mamba2 rank shares", got, whole, SSD_TOL["bf16"])
+    heads = shares[0]["dt_bias"].shape[0]
+    log("launch", f"(d) mamba2-2.7b block, full width, bf16 B=2 S=2048: its "
+        f"{tp} TP rank shares ({heads} heads a rank) one after another on "
+        f"this card and summed: max |diff| {err:.3g} vs the whole block "
+        f"(rtol = atol = {SSD_TOL['bf16']}, max |out| "
+        f"{float(whole.float().abs().max()):.3g}); ssd_scan tc launched "
+        f"{launches['ssd_scan.tc']} times")
+    return dict(max_abs_err=err, heads=heads, launches=launches)
+
+
 def report_sharded(res) -> None:
     tr, sv = res["sharded_train"], res["sharded_serve"]
     log("launch", f"(d) smollm-360m step with sharded parameters "
@@ -2842,6 +2942,7 @@ def main() -> int:
             (1, 56, 8, 2048, 2048, 128, True, 0), bf16, device, "wgmma",
             iters=20)))
     moe_tim = moe_attention_timings(device)
+    tp16 = tp16_timings(device)
     free()
     # ssd_scan: tc at Mamba2's bf16 prefill shape (three launches)
     ssd = time_ssd(MAMBA_SHAPE, bf16, device, "tc")
@@ -2903,11 +3004,9 @@ def main() -> int:
     log("dist", f"phase 13 took {time.perf_counter() - t0:.1f} s, 14(d) "
         f"{dist_res['sharded_wall_s']:.1f} s of it")
 
-    # -- phase 14: launch/ (14(d) ran in phase 13's ranks) ------------------
+    # -- phase 14: launch/ (14(d) ran in phase 13's ranks, but for the
+    # Mamba2 rank shares, here) ---------------------------------------------
     t0 = time.perf_counter()
-    paths["launch"] = read_launches(
-        "launch", ("flash_attention.wgmma", "decode_attention.split"),
-        launch_launches)
     report_sharded(dist_res)
     zero_launches()
     shape_only_trees(device)
@@ -2915,6 +3014,12 @@ def main() -> int:
     roofline_on_card(device, train["p50_ms"])
     if any(launch_counts().values()):
         raise AssertionError("14(a)-(c) launched a kernel")
+    shares = mamba2_rank_shares(device)
+    free()
+    paths["launch"] = read_launches(
+        "launch", ("flash_attention.wgmma", "decode_attention.split",
+                   "ssd_scan.tc"),
+        {k: n + shares["launches"][k] for k, n in launch_launches.items()})
     log("launch", f"phase 14 took {time.perf_counter() - t0:.1f} s here, "
         f"and {dist_res['sharded_wall_s']:.1f} s in phase 13's ranks")
     launches = {k: sum(p[k] for p in paths.values())
@@ -2955,6 +3060,14 @@ def main() -> int:
     da_vars["split"]["phi_serving"] = moe_tim["decode_phi"]
     da_vars["split"]["phi_f32_t16"] = moe_tim["decode_phi_f32"]
     da_vars["split"]["kimi"] = moe_tim["decode_kimi"]
+    da_vars["split"]["tp16_mistral"] = tp16["decode_mistral"]
+    da_vars["split"]["tp16_phi"] = tp16["decode_phi"]
+    fa_vars["wgmma"]["tp16_mistral"] = tp16["flash_mistral"]
+    fa_vars["wgmma"]["tp16_phi"] = tp16["flash_phi"]
+    # the Mamba2 shape runs on the launch path (14(d)'s rank shares)
+    ssd_vars["tc"]["tp16_mamba2"] = dict(
+        tp16["ssd_mamba2"], launches=shares["launches"]["ssd_scan.tc"])
+    ssd_vars["tc"]["tp16_zamba2"] = tp16["ssd_zamba2"]
     kernels = [
         dict(name="decode_attention", route="cuda",
              source="src/repro_torch/csrc/decode_attention.cu",

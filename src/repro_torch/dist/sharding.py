@@ -26,17 +26,25 @@ sharded: `shard_params` keeps this rank's block of every leaf, as
 `param_shardings` places it.  The model then asks `materialize` for each
 layer's parameters just before the layer runs: the FSDP dims are
 all-gathered (the backward reduce-scatters the grads to the block), and
-the matmuls that carry the FLOPs stay split over TP, Megatron-style --
-attention column-parallel on wq/wk/wv (this rank's heads) and
-row-parallel on wo, the MLP and the MoE experts over their d_ff -- with
-the input entering the TP group (`tp_enter`: the backward all-reduces
-its grad) and the output summed over it (`psum`).  Leaves whose TP split
-cuts across a packed layout (Mamba2's in_proj, the vocab of embed and
-unembed) are gathered whole.  `reduce_grads` then sums each grad over
-the DP dims that do not shard its leaf, and `global_norm` adds the
-blocks' squares for the optimizer.  `shard_tree` lays a tree out as
-DTensors for storage.  Process groups are NCCL's for a CUDA mesh and
-gloo's for a CPU mesh, as `init_process_group` made them.
+the matmuls that carry the FLOPs stay split over TP, Megatron-style,
+wherever the reference's policy keeps them split (`tp_plan`):
+attention column-parallel on wq/wk/wv (this rank's q heads and the KV
+heads they read, shared with other ranks when TP does not divide the KV
+heads) and row-parallel on wo; the MLP and the MoE experts over their
+d_ff; Mamba2 head-parallel (its heads' z, x and dt columns of the packed
+in_proj, the B/C groups they read, its heads' rows of out_proj); the
+untied unembedding over the vocab.  A split module's input enters the
+TP group (`tp_enter`: the backward all-reduces its grad) and its output
+is summed over it (`psum`).  Where a rank needs columns that other
+ranks store (a shared KV head, Mamba2's packed segments), an all-to-all
+brings them (`_exchange_columns`; the backward sends the grads home and
+sums them).  Only a tied embedding and an attention whose q heads TP
+does not divide compute whole on every TP rank.  `reduce_grads` then
+sums each grad over the DP dims that do not shard its leaf, and
+`global_norm` adds the blocks' squares for the optimizer.  `shard_tree`
+lays a tree out as DTensors for storage.  Process groups are NCCL's for
+a CUDA mesh and gloo's for a CPU mesh, as `init_process_group` made
+them.
 """
 
 from __future__ import annotations
@@ -47,6 +55,7 @@ from typing import Any
 
 import torch
 import torch.distributed as dist
+import torch.distributed._functional_collectives as fc
 from torch._subclasses.fake_tensor import unset_fake_temporarily
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import (DTensor, Replicate, Shard,
@@ -60,6 +69,15 @@ from . import context as _context
 _TP_LAST = {"wq", "wk", "wv", "w_gate", "w_up", "in_proj", "unembed"}
 # parameter names whose SECOND-TO-LAST dim is the TP (input-feature) dim
 _TP_SECOND = {"wo", "w_down", "out_proj"}
+# a head-parallel Mamba2 block's replicated leaves (the norm's scale among
+# them): each rank takes its heads' entries of their last dim
+_SSM_LAST = {"conv_w", "conv_b", "dt_bias", "A_log", "D", "scale"}
+# (kind, the key that marks a module of that kind, the weights that must
+# be stored split over TP for it to compute split)
+_TP_KINDS = (("attention", "wq", ("wq", "wo")),
+             ("mlp", "w_gate", ("w_gate", "w_up", "w_down")),
+             ("ssm", "in_proj", ("out_proj",)),
+             ("unembed", "unembed", ("unembed",)))
 
 
 def path_str(path) -> str:
@@ -196,6 +214,137 @@ def to_placements(spec: tuple, mesh: DeviceMesh) -> tuple:
     return tuple(placements)
 
 
+# ---------------------------------------------------------------------------
+# what computes split over TP, and each rank's share
+# ---------------------------------------------------------------------------
+
+
+def _groups_read(H: int, G: int, n: int, r: int) -> tuple[int, int]:
+    """(first, count) of the G groups (KV heads, or Mamba2's B/C groups)
+    that rank r's H/n heads read, head h reading group h // (H/G).
+    Raises where a rank's heads would read parts of two groups unequally:
+    no layout of whole groups serves them."""
+    hl, rep = H // n, H // G
+    if hl % rep == 0:
+        return r * hl // rep, hl // rep
+    if rep % hl == 0:
+        return r * hl // rep, 1
+    raise ValueError(f"TP {n}: a rank's {hl} of {H} heads read parts of "
+                     f"groups of {rep} heads; no split takes that")
+
+
+def tp_plan(cfg, n: int) -> dict:
+    """How the leaves that the reference's policy splits over TP compute
+    at a TP size of n, from the config alone: each kind "split" (every TP
+    rank computes its share) or "whole" (gathered whole and computed on
+    every TP rank).  `MeshContext.materialize` follows it, and
+    chip_smoke.py's `duplicate_flops` counts the FLOPs TP duplicates from
+    it.
+    - "unembed": split (a rank's V/n logits) when the unembedding is a
+      leaf of its own and n divides the vocab; whole when it is the tied
+      `embed`, on which the reference's spec puts no TP.
+    - "attention": split when n divides the q heads: a rank computes its
+      H/n q heads and the KV heads they read (its Hkv/n, or where n does
+      not divide Hkv the one KV head it shares with other ranks).  Whole
+      when n does not divide H: wq's TP blocks then cut q heads apart, so
+      no rank holds whole heads, and equal shares of whole heads do not
+      exist.
+    - "ssm": split when n divides Mamba2's heads: a rank computes its
+      heads' z, x and dt columns of in_proj and the B/C groups they read,
+      the conv on those channels, the scan on its heads, and its heads'
+      rows of out_proj.
+    Raises where n divides the heads but a rank's heads would read parts
+    of groups (`_groups_read`)."""
+    plan = {"unembed": "whole" if cfg.tie_embeddings
+            or cfg.vocab_size % n else "split"}
+    if cfg.has_attention:
+        split = cfg.num_heads % n == 0
+        if split:
+            _groups_read(cfg.num_heads, cfg.num_kv_heads, n, 0)
+        plan["attention"] = "split" if split else "whole"
+    if cfg.has_ssm:
+        split = cfg.ssm_heads % n == 0
+        if split:
+            _groups_read(cfg.ssm_heads, cfg.ssm_groups, n, 0)
+        plan["ssm"] = "split" if split else "whole"
+    return plan
+
+
+def tp_columns(kind: str, key: str, size: int, cfg, n: int,
+               r: int) -> list:
+    """Rank r's runs [a, b), ascending, along the TP dim (of whole size
+    `size`) of leaf `key` of a module of `kind` that computes split over n
+    TP ranks (`tp_plan`): its block r of n, but an attention's wk and wv
+    give the columns of the KV heads its q heads read, and a Mamba2
+    block's leaves its heads' entries of each packed segment (in_proj: z,
+    x, B, C, dt; the conv: x, B, C) with the B/C groups they read."""
+    if kind == "attention" and key in ("wk", "wv"):
+        hd = cfg.resolved_head_dim
+        g0, ng = _groups_read(cfg.num_heads, cfg.num_kv_heads, n, r)
+        return [(g0 * hd, (g0 + ng) * hd)]
+    if kind == "ssm" and key != "out_proj":
+        Din, N, H, G = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, \
+            cfg.ssm_groups
+        hl = H // n
+        h0 = r * hl
+        g0, ng = _groups_read(H, G, n, r)
+        # the conv's channels: its heads' x, then B and C of their groups
+        conv = [(h0 * cfg.ssm_head_dim, (h0 + hl) * cfg.ssm_head_dim),
+                (Din + g0 * N, Din + (g0 + ng) * N),
+                (Din + (G + g0) * N, Din + (G + g0 + ng) * N)]
+        if key in ("dt_bias", "A_log", "D"):
+            return [(h0, h0 + hl)]
+        if key == "scale":
+            return conv[:1]
+        if key in ("conv_w", "conv_b"):
+            return conv
+        # in_proj packs z (d_inner wide), the conv's channels, then dt
+        dt0 = 2 * Din + 2 * G * N + h0
+        return conv[:1] + [(a + Din, b + Din) for a, b in conv] \
+            + [(dt0, dt0 + hl)]
+    c = size // n
+    return [(r * c, (r + 1) * c)]
+
+
+def _split_dim(kind: str, key: str):
+    """The dim a module of `kind` that computes split over TP keeps split
+    for its leaf `key` (-1, -2), or None for a leaf it takes whole."""
+    return -1 if kind == "ssm" and key in _SSM_LAST else _tp_dim(key)
+
+
+def _index(runs, device) -> torch.Tensor:
+    """The indices of `runs`, in order, as an int64 tensor."""
+    parts = [torch.arange(a, b, device=device) for a, b in runs]
+    return torch.cat(parts) if parts else \
+        torch.empty(0, dtype=torch.long, device=device)
+
+
+def _clip(runs, lo: int, hi: int) -> list:
+    """`runs` cut to [lo, hi)."""
+    return [(max(a, lo), min(b, hi)) for a, b in runs
+            if max(a, lo) < min(b, hi)]
+
+
+def _count(runs) -> int:
+    return sum(b - a for a, b in runs)
+
+
+def tp_share(tree: dict, kind: str, cfg, n: int, r: int) -> dict:
+    """Rank r's share of a whole module's parameters when the module
+    computes split over n TP ranks, cut here, with no process group: the
+    tensors `MeshContext.materialize` gives that rank (one layer's; the
+    leaves it takes whole pass as they are)."""
+    def one(key, v):
+        if kind == "ssm" and key == "norm":
+            return {k: one(k, x) for k, x in v.items()}
+        dim = _split_dim(kind, key)
+        if dim is None:
+            return v
+        return v.index_select(dim % v.ndim, _index(
+            tp_columns(kind, key, v.shape[dim], cfg, n, r), v.device))
+    return {k: one(k, v) for k, v in tree.items()}
+
+
 class _SumOverGroup(torch.autograd.Function):
     """all_reduce(sum) whose backward passes the gradient through: each
     rank differentiates its own share of a value the sum made global --
@@ -299,6 +448,89 @@ def tp_slice(x: torch.Tensor, dim: int, group, n: int,
     """Block i of n along `dim` of a replicated tensor, its grad made
     whole again over `group`."""
     return _SliceOfReplicated.apply(x, dim, group, n, i)
+
+
+class _SumShared(torch.autograd.Function):
+    """all_reduce(sum) whose backward all-reduces the gradient as well: a
+    sum each rank then uses on its own share of the work (the gated
+    norm's mean square over Mamba2's heads split over TP), so that each
+    rank's grad of it holds only its share's part."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        y = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, grad):
+        g = grad.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def psum_shared(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of `x` over the ranks of `group`, which each then uses on
+    its own share of the work; the gradient is summed over them too."""
+    return _SumShared.apply(x, group)
+
+
+class _TakeOfReplicated(torch.autograd.Function):
+    """Entries `idx` of dim `dim` of a tensor every rank of `group` holds
+    whole; the backward adds their grads into the whole tensor's and sums
+    that over the group (the ranks' entries may overlap), so every rank
+    has the whole tensor's grad."""
+
+    @staticmethod
+    def forward(ctx, x, dim, idx, group):
+        ctx.args = (dim, idx, group, x.shape)
+        return x.index_select(dim, idx)
+
+    @staticmethod
+    def backward(ctx, grad):
+        dim, idx, group, shape = ctx.args
+        g = grad.new_zeros(shape).index_add_(dim, idx, grad)
+        dist.all_reduce(g, group=group)
+        return g, None, None, None
+
+
+def tp_take(x: torch.Tensor, dim: int, idx: torch.Tensor,
+            group) -> torch.Tensor:
+    """Entries `idx` of `dim` of a tensor replicated over `group`, its
+    grad made whole again over the group."""
+    return _TakeOfReplicated.apply(x, dim % x.ndim, idx, group)
+
+
+def tp_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's block of `dim` all-gathered over `group` (the TP
+    group, whose ranks then compute the same on the whole): the backward
+    keeps this rank's block of the grad."""
+    return _Gather.apply(x, dim % x.ndim, group, dist.get_world_size(group),
+                         dist.get_rank(group), False)
+
+
+def _exchange_columns(x: torch.Tensor, dim: int, runs_of, group, n: int,
+                      i: int) -> torch.Tensor:
+    """Rank i's runs `runs_of(i)` of dim `dim` of a leaf stored in n equal
+    blocks over `group`, x being block i: every rank sends each other the
+    entries of its block that the other's runs hold (one all-to-all), in
+    ascending order.  The backward sends the grads back to the blocks
+    they came from, summed where the runs of several ranks overlap (a KV
+    head or a B/C group that ranks share)."""
+    c = x.shape[dim]
+    lo, hi = i * c, (i + 1) * c
+    send, in_splits = [], []
+    for r in range(n):
+        cut = _clip(runs_of(r), lo, hi)
+        send += [(a - lo, b - lo) for a, b in cut]
+        in_splits.append(_count(cut))
+    mine = runs_of(i)
+    out_splits = [_count(_clip(mine, o * c, (o + 1) * c)) for o in range(n)]
+    xt = x.movedim(dim, 0).index_select(0, _index(send, x.device))
+    y = fc.wait_tensor(fc.all_to_all_single_autograd(
+        xt.contiguous(), out_splits, in_splits, group))
+    return y.movedim(0, dim)
 
 
 class TPLocal(dict):
@@ -450,17 +682,40 @@ class MeshContext:
         return {"params": params, "opt": opt, "step": state["step"]}
 
     def shard_cache(self, cache):
-        """This rank's block of a whole cache (`cache_sharding`): its rows
-        of the batch (all of them when the DP ranks do not divide it) and
-        its KV heads when they split over TP.  The SSM state and conv
-        window keep every head: the Mamba2 block computes whole over TP
-        (its in_proj packs z, x, B, C and dt)."""
+        """This rank's block of a whole cache: its rows of the batch (all
+        of them when the DP ranks do not divide it; `cache_sharding`'s DP
+        entry) and, over TP, what the modules that compute split
+        (`tp_plan`) read and write on this rank: the KV heads its q heads
+        read, the SSM state's heads (both `cache_sharding`'s block where
+        TP divides the heads), and the conv window's channels of its
+        heads and their B/C groups.  Where TP does not divide the KV heads
+        the reference's spec replicates them over TP and this rank keeps
+        the one it reads; the reference's spec names the conv window's
+        taps, which no TP size of the configs divides, so it replicates
+        the window.  A module that computes whole keeps its whole cache."""
+        cfg, tp = self.cfg, self.pol.tp_axis
+        n, r = self.size(tp), self.index(tp)
+        plan = tp_plan(cfg, n)
+
+        def heads(path):
+            """(dim, runs) of this rank's part over TP, or None."""
+            if path in ("k", "v") and plan.get("attention") == "split":
+                g0, ng = _groups_read(cfg.num_heads, cfg.num_kv_heads, n, r)
+                return 2, [(g0, g0 + ng)]
+            if path.startswith("ssm/") and plan.get("ssm") == "split":
+                key = "dt_bias" if path == "ssm/state" else "conv_b"
+                return (2 if key == "dt_bias" else 3), tp_columns(
+                    "ssm", key, 0, cfg, n, r)
+            return None
+
         def one(path, leaf):
-            spec = self._cache_spec(leaf)
-            if path.startswith("ssm/"):
-                spec = spec[:2] + (None,) * (len(spec) - 2)
-            return self.block(leaf, _drop_indivisible(spec, leaf,
-                                                      self.mesh)).clone()
+            spec = self._cache_spec(leaf)[:2]
+            spec += (None,) * (leaf.ndim - len(spec))
+            x = self.block(leaf, _drop_indivisible(spec, leaf, self.mesh))
+            part = heads(path) if n > 1 else None
+            if part is not None:
+                return x.index_select(part[0], _index(part[1], x.device))
+            return x.clone()
         return tree_map_with_path(one, cache)
 
     def _split_axes(self, path: str) -> tuple:
@@ -473,46 +728,49 @@ class MeshContext:
         entry = self._layout.get(path)
         return entry is not None and tuple(leaf.shape) != entry[1]
 
-    def _tp_module(self, node: dict, prefix: str, cfg):
-        """The TP group when the module `node` computes TP-split, else
-        None: its matmul weights are cut blocks (`shard_params`), dense
-        ones stored split over TP on the dim the module keeps split (int8
-        ones are gathered whole and cut there: `_gather_int8`), and an
-        attention has whole KV heads a rank."""
+    def _tp_kind(self, node: dict, prefix: str, cfg):
+        """The kind of the module `node` ("attention", "mlp", "ssm" or
+        "unembed") when it computes split over TP, else None.  It does
+        when `tp_plan` splits its kind (the MLP and the experts: when
+        their d_ff is stored split) and its anchor weights are cut blocks
+        (`shard_params`): dense ones stored split over TP on the dim the
+        module keeps split, int8 ones gathered whole and cut there
+        (`_gather_int8`).  A replicated tree computes whole."""
         n = self.size(self.pol.tp_axis)
         if n == 1:
             return None
-        if "wq" in node:
-            keys = ("wq", "wk", "wv", "wo")
-            if cfg.num_kv_heads % n:
-                return None
-        elif "w_gate" in node:
-            keys = ("w_gate", "w_up", "w_down")
+        for kind, found, anchors in _TP_KINDS:
+            if found in node:
+                break
         else:
             return None
-        for k in keys:
+        if kind != "mlp" and tp_plan(cfg, n)[kind] != "split":
+            return None
+        for k in anchors:
             path = f"{prefix}/{k}" if prefix else k
             leaf = node.get(k)
             if isinstance(leaf, dict):                  # int8 {"q", "s"}
                 q = leaf.get("q")
                 if q is None or not self._sharded(q, f"{path}/q") \
-                        or q.shape[_tp_dim(k)] % n:
+                        or (kind == "mlp" and q.shape[_tp_dim(k)] % n):
                     return None
             elif not isinstance(leaf, torch.Tensor) \
                     or not self._sharded(leaf, path) \
                     or self._layout[path][0][_tp_dim(k)] != self.pol.tp_axis:
                 return None
-        return self.group(self.pol.tp_axis)
+        return kind
 
-    def _gather(self, leaf, path: str, index, keep):
+    def _gather(self, leaf, path: str, index, keep, take=None):
         """One leaf as the model computes with it: every split dim but
-        `keep` all-gathered; layer `index` of a stack."""
+        `keep` all-gathered; layer `index` of a stack.  `take`, when
+        given, first maps this rank's block of a leaf stored split on the
+        dim `keep` to the entries of that dim this rank computes with."""
         if not self._sharded(leaf, path):
             return leaf if index is None else leaf[index]
         spec = self._layout[path][0]
         if index is not None and spec[0] is None:
             leaf, spec, index = leaf[index], spec[1:], None
-        x = leaf
+        x = leaf if take is None else take(leaf)
         for d, entry in enumerate(spec):
             if entry is None or (keep is not None and d == keep % len(spec)):
                 continue
@@ -524,43 +782,71 @@ class MeshContext:
                               self.index(axes), summed)
         return x if index is None else x[index]
 
-    def _gather_int8(self, w: dict, path: str, index, keep):
+    def _gather_int8(self, w: dict, path: str, index, dim: int, cols):
         """An int8 weight {"q", "s"} of a TP-split module: both gathered
-        whole, then cut to this rank's block on the kept dim (the scale
-        has the out features only).  Serving only: int8 weights are not
-        trained, and the cut's backward would not sum over TP."""
-        n, i = self.size(self.pol.tp_axis), self.index(self.pol.tp_axis)
+        whole, then cut to this rank's runs `cols(size)` of the split dim
+        (the scale has the out features only).  Serving only: int8
+        weights are not trained, and the cut's backward would not sum
+        over TP."""
         out = {}
         for k, leaf in w.items():
             x = self._gather(leaf, f"{path}/{k}", index, None)
-            d = keep if k == "q" else (-1 if keep == -1 else None)
+            d = dim if k == "q" else (-1 if dim == -1 else None)
             if d is not None:
-                size = x.shape[d] // n
-                x = x.narrow(d, i * size, size)
+                x = x.index_select(d % x.ndim,
+                                   _index(cols(x.shape[d]), x.device))
             out[k] = x
         return out
+
+    def _tp_leaf(self, v, path: str, index, kind: str, key: str, cfg):
+        """Leaf `key` of a module of `kind` that computes split over TP,
+        as this rank computes with it (`tp_columns` on the dim
+        `_split_dim` names): its stored TP block with the other split
+        dims gathered; the entries other ranks store, exchanged
+        (`_exchange_columns`); or, for a leaf replicated over TP, its
+        entries taken (`tp_take`).  Leaves the module takes whole, and a
+        nested module (the experts' shared MLP), go to `materialize`."""
+        if kind == "ssm" and key == "norm":
+            return {k: self._tp_leaf(x, f"{path}/{k}", index, kind, k, cfg)
+                    for k, x in v.items()}
+        dim = _split_dim(kind, key)
+        if dim is None:
+            return self.materialize(v, path, cfg, index)
+        tp = self.pol.tp_axis
+        n, i, group = self.size(tp), self.index(tp), self.group(tp)
+
+        def cols(size, r=i):
+            return tp_columns(kind, key, size, cfg, n, r)
+        if isinstance(v, dict):                         # int8 {"q", "s"}
+            return self._gather_int8(v, path, index, dim, cols)
+        if self._sharded(v, path) and self._layout[path][0][dim] == tp:
+            size = self._layout[path][1][dim]
+            c, take = size // n, None
+            if cols(size) != [(i * c, (i + 1) * c)]:
+                def take(x):
+                    return _exchange_columns(
+                        x, dim, lambda r: cols(size, r), group, n, i)
+            return self._gather(v, path, index, dim, take)
+        x = self._gather(v, path, index, None)
+        return tp_take(x, dim, _index(cols(x.shape[dim]), x.device), group)
 
     def materialize(self, tree, prefix: str, cfg, index=None):
         """`tree` (a leaf or a dict of them, at `prefix` in the parameter
         tree; with `index`, layer `index` of the stacks) as the model
         computes with it.  Replicated leaves pass as they are; the blocks
-        `shard_params` cut are gathered: a module that computes TP-split
-        (`_tp_module`) keeps its matmul weights split over TP and comes as
-        a `TPLocal`; every other leaf is gathered whole."""
+        `shard_params` cut are gathered: a module that computes split
+        over TP (`_tp_kind`) comes as a `TPLocal` of this rank's share
+        (`_tp_leaf`); every other leaf is gathered whole."""
         if not isinstance(tree, dict):
             return self._gather(tree, prefix, index, None)
-        tp = self._tp_module(tree, prefix, cfg)
+        kind = self._tp_kind(tree, prefix, cfg)
         out = {}
         for k, v in tree.items():
             path = f"{prefix}/{k}" if prefix else k
-            keep = _tp_dim(k) if tp is not None else None
-            if isinstance(v, dict) and keep is not None:
-                out[k] = self._gather_int8(v, path, index, keep)
-            elif isinstance(v, dict):
-                out[k] = self.materialize(v, path, cfg, index)
-            else:
-                out[k] = self._gather(v, path, index, keep)
-        return TPLocal(out, tp) if tp is not None else out
+            out[k] = self.materialize(v, path, cfg, index) if kind is None \
+                else self._tp_leaf(v, path, index, kind, k, cfg)
+        return TPLocal(out, self.group(self.pol.tp_axis)) \
+            if kind is not None else out
 
     def reduce_grads(self, grads):
         """Sum each grad, in place, over the DP dims whose rows it has not

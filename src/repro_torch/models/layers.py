@@ -16,11 +16,14 @@ pluggable activation hook that `MeshContext` installs (the identity when
 none is installed, and on a plain tensor, which inside a context already
 holds this rank's rows), and `decode_attn_impl="shard_map"` decodes with
 hd-sharded K/V and an all-reduce of the partial scores inside a context
-whose TP size divides hd but not the KV heads.  A module whose
-parameters come TP-split (`dist.sharding.TPLocal`, from
-`MeshContext.materialize`) computes on this rank's heads or d_ff columns:
-its input enters the TP group (`tp_enter`) and its output is summed over
-it (`psum`); the attention kernels run unchanged on the local heads.
+whose TP size divides hd but not the KV heads and whose parameters are
+not TP-split.  A module whose parameters come TP-split
+(`dist.sharding.TPLocal`, from `MeshContext.materialize`) computes on
+this rank's heads or d_ff columns: its input enters the TP group
+(`tp_enter`) and its output is summed over it (`psum`).  An attention's
+share is its q heads and the KV heads they read, which ranks share when
+TP does not divide the KV heads; the attention kernels run unchanged on
+the local heads.
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ import torch.nn.functional as F
 
 from ..dist.sharding import psum, tp_enter, tp_group
 from .config import ModelConfig
-from .quant import wcast
+from .quant import is_quantized, wcast
 
 # ---------------------------------------------------------------------------
 # activation sharding hook (installed by repro_torch.dist.sharding)
@@ -94,9 +97,14 @@ def init_rmsnorm(d: int, device="cpu"):
     return {"scale": torch.ones((d,), dtype=torch.float32, device=device)}
 
 
-def rms_norm(params, x: torch.Tensor, eps: float) -> torch.Tensor:
+def rms_norm(params, x: torch.Tensor, eps: float,
+             var: torch.Tensor = None) -> torch.Tensor:
+    """RMS norm over the last dim; `var`, when given, is the mean of
+    squares over the whole normalised dim, of which x and the scale hold
+    a part (a TP rank's channels)."""
     x32 = x.float()
-    var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
+    if var is None:
+        var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
     return (y * params["scale"]).to(x.dtype)
 
@@ -209,13 +217,17 @@ def attention(params, x: torch.Tensor, cfg: ModelConfig,
 
 def _heads(params, cfg: ModelConfig) -> tuple[int, int, int]:
     """(H, Hkv, hd) of the heads these parameters hold: all of them, or
-    this rank's share when they are TP-split."""
+    this rank's share when they are TP-split (its q heads and the KV heads
+    they read, from its columns of wq and wk)."""
     H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    tp = tp_group(params)
-    if tp is not None:
-        n = dist.get_world_size(tp)
-        H, Hkv = H // n, Hkv // n
+    if tp_group(params) is not None:
+        H, Hkv = _columns(params["wq"]) // hd, _columns(params["wk"]) // hd
     return H, Hkv, hd
+
+
+def _columns(w) -> int:
+    """The output features of a dense or an int8 weight."""
+    return (w["q"] if is_quantized(w) else w).shape[-1]
 
 
 def _tp_out(y: torch.Tensor, tp) -> torch.Tensor:
@@ -291,10 +303,12 @@ def attention_decode(params, x: torch.Tensor, cfg: ModelConfig,
     dynamic_update_slice).  Returns (out (B,1,D), k_cache, v_cache).
 
     With `decode_attn_impl="shard_map"`, inside a `MeshContext` whose TP
-    size tp divides hd but not Hkv (the reference's gate), x is this
-    rank's rows and the caches are this rank's hd slices (B,Hkv,T,hd/tp):
-    see `_decode_attention_shard_map`.  With TP-split parameters the
-    caches hold this rank's KV heads (`MeshContext.shard_cache`).
+    size tp divides hd but not Hkv (the reference's gate), with
+    parameters that are not TP-split (q heads TP does not divide), x is
+    this rank's rows and the caches are this rank's hd slices
+    (B,Hkv,T,hd/tp): see `_decode_attention_shard_map`.  With TP-split
+    parameters the caches hold the KV heads this rank's q heads read
+    (`MeshContext.shard_cache`).
     """
     _check_attn_impl(cfg)
     B, _, D = x.shape
@@ -316,9 +330,12 @@ def attention_decode(params, x: torch.Tensor, cfg: ModelConfig,
         ctx = current_ctx()
         ntp = ctx.size(ctx.pol.tp_axis) if ctx is not None else 0
         # only when KV heads cannot shard the model axis; head-shardable
-        # archs decode collective-free.  (The reference also asks that the
-        # global batch split over DP: B rows a rank are such a split.)
-        if ctx is not None and Hkv % ntp != 0 and hd % ntp == 0:
+        # archs decode collective-free, and TP-split parameters (q heads
+        # that TP divides) on their shared KV heads.  (The reference also
+        # asks that the global batch split over DP: B rows a rank are such
+        # a split.)
+        if ctx is not None and tp is None and Hkv % ntp != 0 \
+                and hd % ntp == 0:
             o, k_cache, v_cache = _decode_attention_shard_map(
                 q.reshape(B, 1, Hkv, rep, hd), k, v, k_cache, v_cache, pos,
                 ctx, window=window)

@@ -4,6 +4,16 @@ Full-sequence forward (train / prefill) runs the chunked SSD algorithm:
 `ssd_chunked` here on the eager path (`attn_impl == "xla"`), or the
 hand-written CUDA scan (`kernels/ssd_scan`) when `attn_impl == "pallas"`.
 Decode is the O(1) recurrent update, with no kernel, as in the reference.
+
+With TP-split parameters (`dist.sharding.TPLocal`) the block is
+head-parallel: each rank computes its heads' z, x and dt columns of the
+packed in_proj and the B/C groups they read, the conv on those channels,
+the scan on its heads (`mamba2_gated`), and its heads' rows of out_proj
+(`mamba2_out`).  The gated norm normalises over the whole d_inner, so
+its mean of squares is each rank's partial sum summed over TP
+(`psum_shared`), and out_proj's partial products are summed over TP.
+The dims come from the parameters' shapes, so one code path serves the
+whole block and a rank's share.
 """
 
 from __future__ import annotations
@@ -13,8 +23,10 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..dist.sharding import psum_shared, tp_enter, tp_group
 from .config import ModelConfig
-from .layers import dense_init, init_rmsnorm, linear, pshard, rms_norm
+from .layers import (_tp_out, dense_init, init_rmsnorm, linear, pshard,
+                     rms_norm)
 
 
 def init_mamba2(gen, cfg: ModelConfig, dtype, device):
@@ -43,10 +55,17 @@ def init_mamba2(gen, cfg: ModelConfig, dtype, device):
     }
 
 
-def _split_proj(cfg: ModelConfig, zxbcdt: torch.Tensor):
+def _dims(params, cfg: ModelConfig) -> tuple[int, int, int]:
+    """(d_inner, groups, heads) of the heads `params` hold: all of them,
+    or a TP rank's share (its heads and the B/C groups they read)."""
+    H = params["dt_bias"].shape[-1]
+    Din = H * cfg.ssm_head_dim
+    return Din, (params["conv_b"].shape[-1] - Din) // (2 * cfg.ssm_state), H
+
+
+def _split_proj(Din: int, G: int, N: int, zxbcdt: torch.Tensor):
     """(z, xBC, dt) at the reference's split indices (jnp.split takes
     indices, torch.tensor_split too)."""
-    Din, N, G = cfg.d_inner, cfg.ssm_state, cfg.ssm_groups
     return torch.tensor_split(zxbcdt, [Din, 2 * Din + 2 * G * N], dim=-1)
 
 
@@ -123,11 +142,24 @@ def ssd_chunked(x, dt, A, B, C, chunk: int):
 
 
 def mamba2_block(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Full Mamba2 block (train / prefill).  x: (B,S,D) -> (B,S,D)."""
+    """Full Mamba2 block (train / prefill).  x: (B,S,D) -> (B,S,D); on
+    this rank's heads when `params` are TP-split."""
+    tp = tp_group(params)
+    if tp is not None:
+        x = tp_enter(x, tp)
+    g = mamba2_gated(params, x, cfg)
+    return _tp_out(mamba2_out(params, g, _mean_sq(g, tp, cfg), cfg), tp)
+
+
+def mamba2_gated(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The block up to its gated norm: in_proj, the causal conv, the SSD
+    scan with the D skip, times silu(z).  x: (B,S,D) -> (B,S,d_inner) on
+    the heads `params` hold (all of them, or a TP rank's share: then it
+    is the rank's work alone, with no collective)."""
     Bsz, S, _ = x.shape
-    Din, N, G, H, P = (cfg.d_inner, cfg.ssm_state, cfg.ssm_groups,
-                       cfg.ssm_heads, cfg.ssm_head_dim)
-    z, xBC, dt = _split_proj(cfg, linear(params["in_proj"], x))
+    Din, G, H = _dims(params, cfg)
+    N, P = cfg.ssm_state, cfg.ssm_head_dim
+    z, xBC, dt = _split_proj(Din, G, N, linear(params["in_proj"], x))
     xBC = _causal_conv(xBC, params["conv_w"].to(x.dtype), params["conv_b"])
     xs, Bs, Cs = torch.tensor_split(xBC, [Din, Din + G * N], dim=-1)
     xs = xs.reshape(Bsz, S, H, P)
@@ -145,9 +177,27 @@ def mamba2_block(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         y, _ = ssd_chunked(xs, dt, A, Bs, Cs, chunk=cfg.ssm_chunk)
     y = y + xs * params["D"][None, None, :, None].to(x.dtype)
     y = y.reshape(Bsz, S, Din)
-    y = rms_norm(params["norm"], y * F.silu(z), cfg.norm_eps)
+    return y * F.silu(z)
+
+
+def mamba2_out(params, g: torch.Tensor, mean_sq, cfg: ModelConfig):
+    """The block after its gated product `g` (B,S,d_inner of the heads
+    `params` hold): the gated RMS norm with `mean_sq`, the mean of squares
+    over the whole d_inner (None: over g's own), then out_proj.  On a TP
+    rank's share its out_proj rows give a partial sum of the output."""
+    y = rms_norm(params["norm"], g, cfg.norm_eps, var=mean_sq)
     y = pshard(y, "act_btf")
     return linear(params["out_proj"], y)
+
+
+def _mean_sq(g: torch.Tensor, tp, cfg: ModelConfig):
+    """The gated norm's mean of squares over the whole d_inner when `g`
+    holds a TP rank's channels (its partial sum summed over TP), else
+    None: `rms_norm` takes the mean itself."""
+    if tp is None:
+        return None
+    ss = torch.sum(torch.square(g.float()), dim=-1, keepdim=True)
+    return psum_shared(ss, tp) / cfg.d_inner
 
 
 # ---------------------------------------------------------------------------
@@ -170,11 +220,15 @@ def init_ssm_cache(cfg: ModelConfig, batch: int, dtype, device,
 def mamba2_decode(params, x: torch.Tensor, cache: dict, cfg: ModelConfig):
     """One-token step.  x: (B,1,D); cache: {'state','conv'} of one layer.
     Returns (out (B,1,D), new cache): the state is updated in f32 and
-    stored in the cache's dtype."""
+    stored in the cache's dtype.  With TP-split parameters the cache holds
+    this rank's heads and conv channels (`MeshContext.shard_cache`)."""
+    tp = tp_group(params)
+    if tp is not None:
+        x = tp_enter(x, tp)
     Bsz = x.shape[0]
-    Din, N, G, H, P = (cfg.d_inner, cfg.ssm_state, cfg.ssm_groups,
-                       cfg.ssm_heads, cfg.ssm_head_dim)
-    z, xBC, dt = _split_proj(cfg, linear(params["in_proj"], x)[:, 0])
+    Din, G, H = _dims(params, cfg)
+    N, P = cfg.ssm_state, cfg.ssm_head_dim
+    z, xBC, dt = _split_proj(Din, G, N, linear(params["in_proj"], x)[:, 0])
     # rolling conv window
     hist = torch.cat([cache["conv"],
                       xBC[:, None, :].to(cache["conv"].dtype)], dim=1)
@@ -196,7 +250,6 @@ def mamba2_decode(params, x: torch.Tensor, cache: dict, cfg: ModelConfig):
         * Bs[:, :, None, :].float()
     y = torch.einsum("bhpn,bhn->bhp", state, Cs.float())
     y = y.to(x.dtype) + xs * params["D"][None, :, None].to(x.dtype)
-    y = y.reshape(Bsz, 1, Din)
-    y = rms_norm(params["norm"], y * F.silu(z)[:, None, :], cfg.norm_eps)
-    out = linear(params["out_proj"], y)
+    g = y.reshape(Bsz, 1, Din) * F.silu(z)[:, None, :]
+    out = _tp_out(mamba2_out(params, g, _mean_sq(g, tp, cfg), cfg), tp)
     return out, {"state": state.to(cache["state"].dtype), "conv": new_conv}

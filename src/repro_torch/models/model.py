@@ -4,7 +4,12 @@ hybrid); a port of `repro/models/model.py`.
 embedding -> stacked layers (a Python loop over the leading L axis, in
 place of `lax.scan`; each layer's body checkpointed under `cfg.remat`
 when gradients are on) -> norm -> tied or separate unembedding, and the
-next-token loss `loss_fn`.  Hybrid models run Mamba2 blocks and apply
+next-token loss `loss_fn`.  Inside a `MeshContext` whose TP group splits
+the untied unembedding over the vocab (`dist.sharding.tp_plan`), each TP
+rank computes its (…, V/n) block of the logits: `loss_fn` takes the
+log-softmax across TP without whole logits, and `forward`, `prefill` and
+`decode_step` gather the blocks before they return.  Hybrid models run
+Mamba2 blocks and apply
 one *shared* attention + MLP block after every `attn_every`-th layer
 (Zamba2-style); moe layers replace the MLP with `moe.moe_ffn`, whose
 router aux loss the forward sums over the layers.  Parameters keep the
@@ -24,7 +29,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..device import resolve
 from ..dist.context import current_ctx
-from ..dist.sharding import psum
+from ..dist.sharding import psum, tp_enter, tp_gather, tp_group
 from ..tree import tree_map
 from .config import ModelConfig
 from .layers import (attention, attention_decode, embed_init, init_attention,
@@ -149,11 +154,44 @@ def _use(params, name: str, cfg: ModelConfig, index=None):
     return ctx.materialize(params[name], name, cfg, index)
 
 
-def _unembed(params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
-    """Logits in the model dtype (the reference's einsum), not yet f32."""
-    w = _use(params, "embed", cfg).T if cfg.tie_embeddings \
-        else _use(params, "unembed", cfg)
-    return h @ w.to(h.dtype)
+def _unembed(params, cfg: ModelConfig, h: torch.Tensor):
+    """(logits in the model dtype (the reference's einsum), not yet f32;
+    the TP group when they are this rank's (…, V/n) block of the vocab,
+    else None).  A tied embedding computes whole: the reference's spec
+    puts no TP on `embed`."""
+    if cfg.tie_embeddings:
+        return h @ _use(params, "embed", cfg).T.to(h.dtype), None
+    ctx = current_ctx()
+    if ctx is None:
+        return h @ params["unembed"].to(h.dtype), None
+    w = ctx.materialize({"unembed": params["unembed"]}, "", cfg)
+    tp = tp_group(w)
+    if tp is not None:
+        h = tp_enter(h, tp)
+    return h @ w["unembed"].to(h.dtype), tp
+
+
+def _whole(logits: torch.Tensor, tp) -> torch.Tensor:
+    """Logits over the whole vocab: the TP ranks' blocks gathered."""
+    return logits if tp is None else tp_gather(logits, -1, tp)
+
+
+def _vocab_parallel_ll(logits: torch.Tensor, labels: torch.Tensor, tp):
+    """log p(label) at each position from this rank's (…, V/n) block of
+    f32 logits, with no whole logits: the max over TP (no gradient), the
+    sum of exponentials summed over TP, and the label's logit from the
+    rank whose block holds its column, summed over TP.  The loss is the
+    same on every TP rank, so the sums' grads reach each block as they
+    are (`psum`)."""
+    Vl = logits.shape[-1]
+    local = labels.long() - dist.get_rank(tp) * Vl
+    m = torch.amax(logits.detach(), dim=-1, keepdim=True)
+    dist.all_reduce(m, op=dist.ReduceOp.MAX, group=tp)
+    se = psum(torch.sum(torch.exp(logits - m), dim=-1), tp)
+    own = (local >= 0) & (local < Vl)
+    tl = torch.gather(logits, -1, local.clamp(0, Vl - 1)[..., None])[..., 0]
+    tl = psum(torch.where(own, tl, 0.0), tp)
+    return tl - m[..., 0] - torch.log(se)
 
 
 # ---------------------------------------------------------------------------
@@ -224,6 +262,14 @@ def _remat(cfg: ModelConfig, body):
 def forward(params: dict, batch: dict, cfg: ModelConfig):
     """Full-sequence forward.  Returns (logits (B,S,V) f32, aux_loss,
     loss_mask)."""
+    logits, tp, aux, mask = _forward(params, batch, cfg)
+    logits = _whole(logits, tp).to(DTYPES[cfg.logit_dtype])
+    return pshard(logits, "act_btv"), aux, mask
+
+
+def _forward(params: dict, batch: dict, cfg: ModelConfig):
+    """(logits in the model dtype, whole or this rank's vocab block; its
+    TP group or None; aux_loss; loss_mask)."""
     _check_family(cfg)
     h, positions, mask = _embed_inputs(params, batch, cfg)
     attn_mask = hybrid_attn_mask(cfg)
@@ -255,9 +301,8 @@ def forward(params: dict, batch: dict, cfg: ModelConfig):
         h, a = body(h, i, attn_mask[i])
         aux = aux + a
     h = rms_norm(_use(params, "final_norm", cfg), h, cfg.norm_eps)
-    logits = _unembed(params, cfg, h).to(DTYPES[cfg.logit_dtype])
-    logits = pshard(logits, "act_btv")
-    return logits, aux, mask
+    logits, tp = _unembed(params, cfg, h)
+    return logits, tp, aux, mask
 
 
 def loss_fn(params: dict, batch: dict, cfg: ModelConfig):
@@ -273,14 +318,20 @@ def loss_fn(params: dict, batch: dict, cfg: ModelConfig):
     gradient of this rank's loss is its share of the whole batch's (the
     train step sums the shares).  Rows replicated over DP
     (`MeshContext.row_group` is None) are the whole batch: nothing is
-    summed."""
+    summed.  Logits split over the vocab (`_unembed`) take the
+    log-softmax across TP (`_vocab_parallel_ll`)."""
     ctx = current_ctx()
     group = ctx.row_group() if ctx is not None else None
-    logits, aux, mask = forward(params, batch, cfg)
+    logits, tp, aux, mask = _forward(params, batch, cfg)
+    logits = pshard(logits.to(DTYPES[cfg.logit_dtype]), "act_btv")
     labels = batch["labels"]
     lw = mask & (labels >= 0)
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    ll = torch.gather(logp, -1, labels.clamp(min=0).long()[..., None])[..., 0]
+    if tp is None:
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        ll = torch.gather(logp, -1,
+                          labels.clamp(min=0).long()[..., None])[..., 0]
+    else:
+        ll = _vocab_parallel_ll(logits.float(), labels.clamp(min=0), tp)
     count = lw.sum()
     if group is not None:
         dist.all_reduce(count, group=group)
@@ -297,9 +348,10 @@ def loss_fn(params: dict, batch: dict, cfg: ModelConfig):
 
 def prefill(params: dict, batch: dict, cfg: ModelConfig, max_seq: int):
     """Last-token logits of the full-prompt forward (the reference's
-    `prefill`, which leaves the KV cache to the serving engine)."""
-    logits, _aux, _mask = forward(params, batch, cfg)
-    return logits[:, -1]
+    `prefill`, which leaves the KV cache to the serving engine); vocab
+    blocks are gathered at the last position only."""
+    logits, tp, _aux, _mask = _forward(params, batch, cfg)
+    return _whole(logits[:, -1], tp).to(DTYPES[cfg.logit_dtype])
 
 
 # ---------------------------------------------------------------------------
@@ -368,7 +420,7 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
     else:
         h = _ssm_decode_layers(params, cache, h, cfg)
     h = rms_norm(_use(params, "final_norm", cfg), h, cfg.norm_eps)
-    logits = _unembed(params, cfg, h)
+    logits = _whole(*_unembed(params, cfg, h))
     return logits[:, 0].float(), dict(cache, pos=pos + 1)
 
 

@@ -3,9 +3,13 @@ has the reference's text byte for byte, and seeded schedules (puts and
 reads, a leader crash, a one-way partition, a range split, a cross-range
 transaction) give the same acknowledgements, reads, simulated time and
 protocol journal in both packages.  The reference's lost acknowledged
-write under crash-restart is reproduced, not masked."""
+write under crash-restart is reproduced, not masked.  The torch
+quickstart prints what the reference's quickstart prints."""
 
 import importlib
+import os
+import subprocess
+import sys
 from pathlib import Path
 
 import pytest
@@ -260,3 +264,19 @@ def test_acked_write_lost_by_a_restarted_replica_in_both_packages():
     assert after == (4, b"k000000000001-w4")
     # the cluster as a whole still serves the last write after healing
     assert healed == ("OK", 6, b"k000000000001-w6")
+
+
+def test_torch_quickstart_prints_the_reference_quickstart():
+    """examples/torch_quickstart.py walks the datastore on the port's
+    `core/` and prints the lines examples/quickstart.py prints on the
+    reference's: the same simulator, seed, versions, latencies, leaders
+    and sim-times."""
+    def run(name):
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        out = subprocess.run([sys.executable, str(ROOT / "examples" / name)],
+                             capture_output=True, text=True, env=env,
+                             cwd=ROOT, timeout=120, check=True)
+        return out.stdout.splitlines()
+    ref = run("quickstart.py")
+    assert len(ref) == 11 and "no committed write lost" in ref[-2]
+    assert run("torch_quickstart.py") == ref

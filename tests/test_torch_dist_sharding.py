@@ -200,3 +200,68 @@ def test_path_str_joins_names_and_keys():
         "wq": 0}}})[0][0]
     assert tsh.path_str(keys) == jsh.path_str(keys) == "layers/attn/wq"
     assert tsh.path_str("layers/attn/wq") == "layers/attn/wq"
+
+
+# at the pod's TP of 16: (unembed, attention, ssm), "-" where the arch has
+# no such module
+TP16_PLAN = {
+    "smollm-360m": ("whole", "whole", "-"),          # tied; 15 q heads
+    "gemma-7b": ("whole", "split", "-"),             # tied
+    "mistral-large-123b": ("split", "split", "-"),   # 96/8: shared KV
+    "deepseek-coder-33b": ("split", "whole", "-"),   # 56 q heads
+    "phi3.5-moe-42b-a6.6b": ("split", "split", "-"),
+    "kimi-k2-1t-a32b": ("split", "split", "-"),
+    "mamba2-2.7b": ("whole", "-", "split"),          # tied; 80 heads
+    "zamba2-7b": ("split", "split", "split"),         # 112 SSM heads
+    "musicgen-large": ("split", "split", "-"),
+    "phi-3-vision-4.2b": ("split", "split", "-"),
+}
+
+
+@pytest.mark.parametrize("arch", list(TP16_PLAN))
+def test_tp_plan_of_the_full_configs_at_tp16(arch):
+    """What computes split over a TP of 16 (`tp_plan`): the untied
+    unembedding, attention whose q heads 16 divides (a KV head shared by
+    16 / Hkv ranks where 16 does not divide Hkv), Mamba2's heads; and
+    each rank's columns (`tp_columns`) tile the whole leaf, a shared KV
+    head's or B/C group's columns repeated on every rank that reads
+    them."""
+    cfg = get_config(arch)
+    plan = tsh.tp_plan(cfg, 16)
+    assert tuple(plan.get(k, "-") for k in ("unembed", "attention",
+                                            "ssm")) == TP16_PLAN[arch]
+
+    def cols(kind, key, size):
+        runs = [tsh.tp_columns(kind, key, size, cfg, 16, r)
+                for r in range(16)]
+        for rr in runs:
+            assert all(a < b for a, b in rr) and rr == sorted(rr)
+        return np.bincount(np.concatenate(
+            [np.arange(a, b) for rr in runs for a, b in rr]), minlength=size)
+    if plan["unembed"] == "split":
+        assert (cols("unembed", "unembed", cfg.vocab_size) == 1).all()
+    if plan.get("attention") == "split":
+        H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+        assert (cols("attention", "wq", H * hd) == 1).all()
+        assert (cols("attention", "wk", Hkv * hd)
+                == max(1, 16 // Hkv)).all()
+    if plan.get("ssm") == "split":
+        Din, N, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+        seen = cols("ssm", "in_proj", 2 * Din + 2 * N + H)
+        assert (seen[:2 * Din] == 1).all() and (seen[2 * Din + 2 * N:] == 1
+                                                ).all()
+        assert (seen[2 * Din:2 * Din + 2 * N] == 16).all()      # B, C
+        assert (cols("ssm", "out_proj", Din) == 1).all()
+
+
+def test_tp_plan_raises_where_a_rank_would_read_part_of_a_kv_head():
+    """20 q heads on 4 KV heads over 10 ranks: a rank's 2 q heads would
+    read two KV heads, a part of each's 5; no split takes that, and none
+    is quietly computed whole."""
+    cfg = get_config("mistral-large-123b").scaled(num_heads=20,
+                                                  num_kv_heads=4)
+    with pytest.raises(ValueError, match="no split"):
+        tsh.tp_plan(cfg, 10)
+    with pytest.raises(ValueError, match="no split"):
+        tsh.tp_plan(cfg, 5)                    # 4 q heads on groups of 5
+    assert tsh.tp_plan(cfg, 4)["attention"] == "split"   # a KV head a rank

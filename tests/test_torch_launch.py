@@ -295,30 +295,38 @@ print(json.dumps(run_cell("gemma-7b", "long_500k", "pod", Path(sys.argv[1]))))
 
 def analytic_flops_per_device(cfg, shape: str, tp: int, dp: int) -> float:
     """One device's matmul FLOPs of a decode step from the config: 2 x its
-    rows x the weights it multiplies (a module's over TP when its heads or
-    d_ff split, whole otherwise; the tied unembedding whole), plus the
-    attention's scores and values over the whole cache (4 B H T hd a
-    layer), plus an SSM block's state read-out (2 H P N)."""
+    rows x the weights it multiplies (attention's over TP when TP divides
+    its q heads, with one KV head a rank where TP does not divide the KV
+    heads, whole otherwise; the MLP's over TP when TP divides its d_ff;
+    Mamba2's over TP when TP divides its heads, B and C of its one group
+    on every rank; the untied unembedding over TP, the tied one whole),
+    plus the attention's scores and values over the whole cache (4 B H T
+    hd a layer, over TP when split), plus an SSM block's state read-out
+    (2 H P N, over TP when split)."""
     spec = tshapes.SHAPES[shape]
     rows = spec.global_batch // dp if spec.global_batch % dp == 0 \
         else spec.global_batch
     D, L, V = cfg.d_model, cfg.num_layers, cfg.vocab_size
-    per_layer = 0.0
+    per_layer, H = 0.0, cfg.num_heads
+    attn_tp = tp if cfg.family in ("dense", "moe") and H % tp == 0 else 1
     if cfg.family in ("dense", "moe"):
-        H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-        attn = 2 * D * H * hd + 2 * D * Hkv * hd
-        per_layer += attn / (tp if Hkv % tp == 0 else 1)
+        Hkv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+        per_layer += 2 * D * H * hd / attn_tp \
+            + 2 * D * hd * max(Hkv // attn_tp, 1)
         per_layer += 3 * D * cfg.d_ff / (tp if cfg.d_ff % tp == 0 else 1)
+    ssm_tp = tp if cfg.has_ssm and cfg.ssm_heads % tp == 0 else 1
     if cfg.has_ssm:
-        G, N = cfg.ssm_groups, cfg.ssm_state
-        per_layer += D * (2 * cfg.d_inner + 2 * G * N + cfg.ssm_heads)
-        per_layer += cfg.d_inner * D
-    flops = 2 * rows * (L * per_layer + V * D)
+        assert cfg.ssm_groups == 1
+        N, Din = cfg.ssm_state, cfg.d_inner
+        per_layer += D * ((2 * Din + cfg.ssm_heads) / ssm_tp + 2 * N)
+        per_layer += Din / ssm_tp * D
+    vocab_tp = tp if not cfg.tie_embeddings and V % tp == 0 else 1
+    flops = 2 * rows * (L * per_layer + V * D / vocab_tp)
     if cfg.family in ("dense", "moe"):
-        flops += L * 4 * rows * cfg.num_heads * spec.seq_len \
+        flops += L * 4 * rows * H / attn_tp * spec.seq_len \
             * cfg.resolved_head_dim
     if cfg.has_ssm:
-        flops += L * 2 * rows * cfg.ssm_heads * cfg.ssm_head_dim \
+        flops += L * 2 * rows * cfg.ssm_heads / ssm_tp * cfg.ssm_head_dim \
             * cfg.ssm_state
     return flops
 
@@ -365,16 +373,19 @@ def test_dryrun_writes_the_reference_record(dryrun_dir, cell):
 def test_dryrun_replicates_the_batch_of_one(dryrun_dir):
     """long_500k's global batch of 1 on a 16-way data axis: every rank
     holds the whole (replicated) batch, and its SSM cache is the batch
-    of 1's; the step's work is the whole model's (model_flops)."""
+    of 1's at its 5 of the 80 heads (the state) and their conv channels
+    with B and C; the step's work is the whole batch's on those heads."""
     _out, recs = dryrun_dir
     rec = recs[("mamba2-2.7b", "long_500k")]
     cfg = get_config("mamba2-2.7b")
     cache = init_cache(cfg, 1, tshapes.SHAPES["long_500k"].seq_len,
-                       device="meta")
-    assert rec["memory"]["alias_bytes"] == sum(
-        t.numel() * t.element_size() for _, t in tree_leaves_with_path(cache))
-    ratio = rec["cost_extrapolated"]["flops"] / rec["roofline"]["model_flops"]
-    assert 0.9 <= ratio <= 1.1
+                       device="meta")["ssm"]
+    din, two_n = cfg.d_inner, 2 * cfg.ssm_state
+    conv = cache["conv"].numel() // (din + two_n) * (din // 16 + two_n)
+    assert rec["memory"]["alias_bytes"] == 2 * (
+        cache["state"].numel() // 16 + conv) + 4          # bf16; pos int32
+    want = analytic_flops_per_device(cfg, "long_500k", tp=16, dp=16)
+    assert abs(rec["cost_extrapolated"]["flops"] - want) <= 0.1 * want
 
 
 def test_skip_record_equals_the_reference(dryrun_dir):

@@ -23,7 +23,8 @@ from repro_torch.convert import params_from_numpy, train_state_from_numpy
 from repro_torch.data.pipeline import TokenStream
 from repro_torch.dist.pipeline import gpipe
 from repro_torch.dist.sharding import MeshContext, ShardingPolicy, TPLocal
-from repro_torch.models import decode_step, forward, init_cache, prefill
+from repro_torch.models import (decode_step, forward, init_cache, loss_fn,
+                                prefill)
 from repro_torch.models.layers import attention_decode, pshard
 from repro_torch.models.moe import moe_ffn
 from repro_torch.models.quant import quantize_tree
@@ -312,20 +313,38 @@ def _own_rows(ctx, x):
     return x[i * b:(i + 1) * b]
 
 
-def _serve_case(ctx, cfg, full, batch, toks, T):
+def _serve_case(ctx, cfg, full, batch, toks, T, grads=False):
     """forward, prefill and len(toks[0]) decode steps with this rank's
     blocks of the parameters and of the cache, on this rank's rows (cut
-    by `_own_rows`, outside `MeshContext.rows`)."""
+    by `_own_rows`, outside `MeshContext.rows`); the stored blocks and
+    the cache after the steps; with `grads`, `loss_fn` of the rows and
+    its grads, summed over DP and gathered whole."""
     local = ctx.shard_params(full)
     res = _stored(ctx, local, full)
-    # the modules that compute TP-split: layer 0's, the shared block's
+    res["blocks"] = local
+    # the modules that compute TP-split: layer 0's, the shared block's,
+    # the unembedding
     with torch.no_grad():
         lp = ctx.materialize(local["layers"], "layers", cfg, 0)
         if "shared_attn" in local:
             lp.update(ctx.materialize(local["shared_attn"], "shared_attn",
                                       cfg))
+        if "unembed" in local:
+            lp["unembed"] = ctx.materialize({"unembed": local["unembed"]},
+                                            "", cfg)
     res["tp_modules"] = sorted(k for k, v in lp.items()
                                if isinstance(v, TPLocal))
+    if grads:
+        rows = {k: _own_rows(ctx, _t(v)) for k, v in batch.items()}
+        leaves = tree_map(lambda p: p.detach().requires_grad_(True), local)
+        with ctx, torch.enable_grad():
+            loss, _ = loss_fn(leaves, rows, cfg)
+            g = torch.autograd.grad(loss, tree_leaves(leaves),
+                                    materialize_grads=True)
+        it = iter(g)
+        g = ctx.reduce_grads(tree_map(lambda _: next(it), local))
+        res["serve_loss"] = float(loss)
+        res["grads"] = _whole(ctx, g)
     with ctx, torch.no_grad():
         rows = {k: _own_rows(ctx, _t(v)) for k, v in batch.items()}
         logits, aux, _ = forward(local, rows, cfg)
@@ -339,6 +358,7 @@ def _serve_case(ctx, cfg, full, batch, toks, T):
             lg, cache = decode_step(local, cache, tl[:, t:t + 1], cfg)
             steps.append(lg)
         res["decode"] = torch.stack(steps)
+        res["cache"] = cache
     return res
 
 
@@ -377,7 +397,8 @@ def tp_cases(rank, world, cases):
             if c["serve"].get("int8"):
                 full = quantize_tree(full)
             res.update(_serve_case(ctx, cfg, full, c["serve"]["batch"],
-                                   c["serve"]["tokens"], c["serve"]["T"]))
+                                   c["serve"]["tokens"], c["serve"]["T"],
+                                   c["serve"].get("grads", False)))
         out[name] = res
     return out
 
