@@ -12,10 +12,13 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      over the reference's test shapes and the shapes of SmolLM-360M,
      DeepSeek-Coder-33B, Mamba2-2.7B and Zamba2-7B, and a TP-16 rank's
      shapes (Mistral-Large's 6 and Phi-3.5-MoE's 2 q heads on one shared
-     KV head, 5 and 7 Mamba2 heads), f32 and bf16; each
+     KV head, 5 and 7 Mamba2 heads), and phase 15's prefill attention
+     (Zamba2-7B's hd 112 with its window, Phi-3-Vision-4.2B's hd 96,
+     Gemma-7B's hd 256, each head dim also with GQA, a ragged tail, a
+     window and rows with no visible key), f32 and bf16; each
      case runs on the variant that `ops.variant` picks for it (flash:
-     wgmma for bf16 at hd 64/128, fma otherwise; ssd_scan: tc for bf16,
-     fma for f32);
+     wgmma for bf16 at hd 64/96/112/128/256, fma for f32 and for bf16 at
+     hd 16/32; ssd_scan: tc for bf16, fma for f32);
   4. SmolLM-360M at full width in f32: token-by-token decode_step logits
      (decode kernel) against the forward pass (flash fma kernel), 2e-3;
   5. serving: SmolLM-360M at full width in bf16, 8 slots, 16 requests;
@@ -33,7 +36,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      the full-context step's shape, at DeepSeek-Coder-33B's heads over
      a 16384-token cache, at the f32 shapes of phases 4 and 7, and at one
      split fewer and more than its rule picks; every kernel at phase 3's
-     TP-16 rank shapes in bf16.  `ms`, `plain_ms` and
+     TP-16 rank shapes in bf16; flash wgmma at phase 15's three
+     shapes and ssd_scan tc at its Zamba2-7B shape.  `ms`, `plain_ms` and
      `library_ms` are device time per call (the kernels' durations from
      torch.profiler); `call_ms` is CUDA-event time over back-to-back
      calls, which the host's launch cost bounds at small shapes;
@@ -151,6 +155,18 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      the 16 ranks of a head-parallel TP split compute it, one rank after
      another on the card (ssd_scan tc at 5 heads), summed, against the
      whole block (SSD_TOL["bf16"]).
+ 15. bf16 prefills at full width and depth (`[prefill]` lines), one arch
+     at a time, weights from a seeded torch.Generator on the card:
+     Zamba2-7B (81 Mamba2 layers, the shared attention block at 13
+     slots, hd 112, window 32768), Phi-3-Vision-4.2B (32 layers, hd 96;
+     256 seeded patch embeddings, then 1792 tokens) and Gemma-7B (28
+     layers, hd 256, vocab 256000, tied embedding); each a B=2 x 2048
+     prefill as phase 5's (a warm-up, a timed call, the eager path on the
+     same inputs within PREFILL_REL_LIMIT, top-1 agreement, a profiled
+     call: busy, idle share, flash attention's ms, top kernels), its
+     peak memory and parameter count; the timed call must launch flash
+     wgmma once a slot or layer (13, 32, 28), flash fma never, and
+     ssd_scan tc 3 x 81 times for Zamba2-7B.
 Phase 3 also checks, and phase 8 times, phase 11's attention shapes:
 Phi-3.5-MoE's 32/8 heads at hd 128 (bf16 decode over 8 x 512 cached
 tokens, the bf16 2048-token prefill, and the f32 shapes of 11(a)) and
@@ -162,13 +178,15 @@ share), the first step's logits against the eager path.
 Phases 4-5, 6 and 7 are the three serving main paths, phase 9 the
 training path, phase 10 the store path (commit, restore, serve with
 refresh, resume), phase 11 the moe path, phase 12 the workload path,
-phase 13 the dist path, phase 14(d) the launch path.  The launch
+phase 13 the dist path, phase 14(d) the launch path, phase 15 the
+prefill path.  The launch
 counters are zeroed just before each and read just after it (phases 13
 and 14(d): in each rank's process, summed by the parent); every kernel
 variant of a serving path must have launched there, decode_attention on
 the store path's engine, decode and both flash variants on the moe path,
 flash fma on the dist path, flash wgmma, decode and ssd_scan tc on the
-launch path, and none on
+launch path, flash wgmma and ssd_scan tc (and no flash fma) on the
+prefill path, and none on
 the training path (the kernels are forward-only, so training takes the
 eager attention path, as the reference's does) or on the workload path
 (no model runs there).  The
@@ -225,7 +243,7 @@ from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import roofline  # noqa: E402
 from repro_torch.launch.hlo import CollectiveInventory  # noqa: E402
 from repro_torch.launch.shapes import SHAPES as dryrun_shapes  # noqa: E402
-from repro_torch.launch.shapes import ShapeSpec  # noqa: E402
+from repro_torch.launch.shapes import ShapeSpec, make_batch  # noqa: E402
 from repro_torch.models import (decode_step, forward, init_cache,  # noqa: E402
                                 init_params, prefill)
 from repro_torch.models import layers as layers_mod  # noqa: E402
@@ -332,6 +350,17 @@ DECODE_CASES += DECODE_TP16
 FLASH_TP16 = [(2, 6, 1, 2048, 2048, 128, True, 0),
               (2, 2, 1, 2048, 2048, 128, True, 0)]
 FLASH_CASES += FLASH_TP16
+# phase 15's bf16 prefills at B=2, S=2048: Zamba2-7B's shared attention
+# (its 32768 window does not bind), Phi-3-Vision-4.2B's and Gemma-7B's
+# heads; then at each of their head dims GQA, a ragged tail, a window and
+# bidirectional rows with no visible key (Sk < Sq)
+FLASH_PREFILL = {"zamba2-7b": (2, 32, 32, 2048, 2048, 112, True, 32768),
+                 "phi-3-vision-4.2b": (2, 32, 32, 2048, 2048, 96, True, 0),
+                 "gemma-7b": (2, 16, 16, 2048, 2048, 256, True, 0)}
+FLASH_CASES += list(FLASH_PREFILL.values()) + [
+    case for hd in (96, 112, 256) for case in (
+        (1, 8, 2, 200, 200, hd, True, 0), (1, 4, 4, 130, 130, hd, True, 0),
+        (1, 4, 2, 300, 300, hd, True, 64), (1, 2, 2, 48, 16, hd, False, 8))]
 SMOLLM_FLASH = (2, 15, 5, 2048, 2048, 64, True, 0)
 # the eager path rounds scores to bf16 before its softmax (up to ~2 % per
 # probability at |s| ~ 8) where the kernel keeps them f32; 32 layers
@@ -354,6 +383,9 @@ SSD_TP16 = [(2, 2048, 5, 64, 128, 128, False),
             (2, 2048, 7, 64, 64, 128, False)]
 SSD_CASES += SSD_TP16
 MAMBA_SHAPE = (2, 2048, 80, 64, 128, 128, False)
+# Zamba2-7B's bf16 prefill (phase 15): 112 heads, state 64, B=2, S=2048
+ZAMBA_PREFILL = (2, 2048, 112, 64, 64, 128, False)
+SSD_CASES.append(ZAMBA_PREFILL)
 MAMBA_256 = (2, 256, 80, 64, 128, 128, False)
 ZAMBA_256 = (2, 256, 112, 64, 64, 128, False)
 # the full-context decode step against the eager path, which rounds its
@@ -375,11 +407,16 @@ def dev_us(event) -> float:
         or getattr(event, "self_cuda_time_total", 0.0)
 
 
+NO_PROFILE = "(CUDA events: the profiler recorded no kernel)"
+
+
 def device_kernels(fn, iters: int, warmup: int = 3) -> dict:
     """Device time per call by kernel name: the durations of the kernels
     the calls launched, from torch.profiler, over `iters` calls.  Unlike
     `cuda_ms` it leaves out the host's time between launches, which at
-    small shapes is longer than the kernel."""
+    small shapes is longer than the kernel.  Where the profiler records
+    no kernel in five runs, the calls are timed with CUDA events instead
+    (one entry, `NO_PROFILE`), and a line says so."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
@@ -387,7 +424,7 @@ def device_kernels(fn, iters: int, warmup: int = 3) -> dict:
     torch.cuda.synchronize()
     # now and then the profiler hands back no kernel for a run (a 0 ms
     # reading): measure again rather than report it
-    for _ in range(3):
+    for _ in range(5):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
@@ -399,7 +436,10 @@ def device_kernels(fn, iters: int, warmup: int = 3) -> dict:
                 out[name] = out.get(name, 0.0) + dev_us(e) / 1e3 / iters
         if out:
             return out
-    raise RuntimeError("torch.profiler recorded no kernel in three runs")
+    ms = cuda_ms(fn, iters)
+    log("timing", f"torch.profiler recorded no kernel in five runs: "
+        f"{ms:.5f} ms a call by CUDA events (host launch time included)")
+    return {NO_PROFILE: ms}
 
 
 def device_ms(fn, iters: int) -> float:
@@ -733,7 +773,8 @@ def smollm_path(device):
     free()
     fc = full_context_decode(cfg16, params16, device)
     free()
-    wall, rel, agree = timed_prefill(cfg16, params16, device, seed=3)
+    pf = timed_prefill(cfg16, params16, device, seed=3)
+    wall, rel, agree = pf["wall_s"], pf["rel"], pf["top1"]
     log("prefill", f"smollm-360m full width bf16 B=2 S=2048: "
         f"{1e3 * wall:.3f} ms, {2 * 2048 / wall:.1f} prompt tokens/s; "
         f"against the eager path (bf16 scores, f32 softmax): max |diff| / "
@@ -744,26 +785,34 @@ def smollm_path(device):
     return dec_len, fc
 
 
-def timed_prefill(cfg16, params16, device, seed, S=2048):
-    """A warm-up and a timed bf16 prefill of B=2 x S tokens through the
-    kernels, then the eager path's on the same tokens.  Returns (seconds,
-    max |diff| / max |logit|, top-1 agreement)."""
-    tokens = torch.from_numpy(np.random.default_rng(seed).integers(
-        0, cfg16.vocab_size, (2, S))).to(device)
-    prefill(params16, {"tokens": tokens}, cfg16, S)   # warm-up
+def timed_prefill(cfg16, params16, device, seed, S=2048, batch=None):
+    """A warm-up and a timed bf16 prefill of B=2 x S positions through the
+    kernels (`batch`, or seeded tokens), then the eager path's on the same
+    inputs, and one profiled call.  Returns the timed call's seconds
+    (`wall_s`), launches per kernel variant and peak memory since the
+    warm-up began, max |diff| / max |logit| against the eager path
+    (`rel`), top-1 agreement and the profile."""
+    if batch is None:
+        batch = {"tokens": torch.from_numpy(np.random.default_rng(
+            seed).integers(0, cfg16.vocab_size, (2, S))).to(device)}
+    torch.cuda.reset_peak_memory_stats()
+    prefill(params16, batch, cfg16, S)   # warm-up
     torch.cuda.synchronize()
+    before = launch_counts()
     t0 = time.perf_counter()
-    last = prefill(params16, {"tokens": tokens}, cfg16, S)
+    last = prefill(params16, batch, cfg16, S)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    plain = prefill(params16, {"tokens": tokens},
-                    cfg16.scaled(attn_impl="xla"), S)
+    launched = {k: n - before[k] for k, n in launch_counts().items()}
+    peak = torch.cuda.max_memory_allocated()
+    plain = prefill(params16, batch, cfg16.scaled(attn_impl="xla"), S)
     if last.shape != (2, cfg16.vocab_size) or not torch.isfinite(last).all():
         raise AssertionError(f"prefill logits {tuple(last.shape)} not finite")
     rel = float((last - plain).abs().max() / plain.abs().max())
     agree = float((last.argmax(-1) == plain.argmax(-1)).float().mean())
-    where_the_time_goes(cfg16, params16, tokens, S)
-    return wall, rel, agree
+    return dict(wall_s=wall, launches=launched, peak_bytes=peak, rel=rel,
+                top1=agree, profile=where_the_time_goes(cfg16, params16,
+                                                        batch, S))
 
 
 def kernel_name(key: str) -> str:
@@ -800,16 +849,24 @@ def profile_call(fn):
     return wall_ms, sum(ms for _, ms, _ in kernels), kernels, ops
 
 
-def where_the_time_goes(cfg, params, tokens, S, top=8):
+def where_the_time_goes(cfg, params, batch, S, top=8) -> dict:
     """One more prefill under torch.profiler: the device's busy time
-    against the call's wall time, and the kernels that take the most."""
+    against the call's wall time, and the kernels that take the most
+    (flash attention's own: `flash_ms`)."""
     wall_ms, busy_ms, kernels, _ = profile_call(
-        lambda: prefill(params, {"tokens": tokens}, cfg, S))
+        lambda: prefill(params, batch, cfg, S))
     parts = ", ".join(f"{k[:48]} {ms:.3f} ms x{n}"
                       for k, ms, n in kernels[:top])
+    out = dict(wall_ms=wall_ms, busy_ms=busy_ms,
+               idle_share=max(0.0, 1 - busy_ms / wall_ms),
+               flash_ms=sum(ms for k, ms, _ in kernels
+                            if "flash_wgmma_kernel" in k
+                            or "flash_kernel" in k))
     log("prefill", f"{cfg.name} where the time goes (profiled call, "
         f"{wall_ms:.3f} ms wall): device busy {busy_ms:.3f} ms, idle share "
-        f"{max(0.0, 1 - busy_ms / wall_ms):.3f}; top kernels: {parts}")
+        f"{out['idle_share']:.3f}, flash attention {out['flash_ms']:.3f} "
+        f"ms; top kernels: {parts}")
+    return out
 
 
 def full_context_decode(cfg16, params16, device, slots=8, T=2048, pos=2000,
@@ -892,7 +949,8 @@ def mamba2_path(device):
     params16 = init_params(cfg16, seed=0, device=device)
     weight_bytes = sum(t.numel() * t.element_size()
                        for t in tree_leaves(params16))
-    wall, rel, agree = timed_prefill(cfg16, params16, device, seed=2)
+    pf = timed_prefill(cfg16, params16, device, seed=2)
+    wall, rel, agree = pf["wall_s"], pf["rel"], pf["top1"]
     log("mamba2", f"prefill bf16 B=2 S=2048: {1e3 * wall:.3f} ms, "
         f"{2 * 2048 / wall:.1f} tokens/s; against the eager path (bf16 "
         f"casts of ssd_chunked): max |diff| / max |logit| {rel:.3g} "
@@ -985,13 +1043,19 @@ def time_ssd(case, dtype, device, var, iters=20):
 
 def time_flash(case, dtype, device, var, iters=50):
     B, H, Hkv, S, _, hd, causal, window = case
+    # the bound counts causal (q, k) pairs and the library call takes no
+    # window: every timed shape is causal, its window wider than S if set
+    if not causal or 0 < window < S:
+        raise ValueError(f"time_flash: {case} is not causal over all of S")
     q, k, v = flash_inputs(case, dtype, device, seed=1)
-    out = fa_ops._launch(var, q, k, v, True, 0)
-    err = compare("flash timing shape", out, fa_ops.PLAIN[var](q, k, v),
+    out = fa_ops._launch(var, q, k, v, True, window)
+    err = compare("flash timing shape", out,
+                  fa_ops.PLAIN[var](q, k, v, window=window),
                   TOL_LONG_F32 if dtype == torch.float32 else TOL["bf16"])
-    ms, call_ms, _ = timed(lambda: fa_ops._launch(var, q, k, v, True, 0),
-                           iters)
-    plain = device_ms(lambda: fa_ops.PLAIN[var](q, k, v), max(5, iters // 5))
+    ms, call_ms, _ = timed(
+        lambda: fa_ops._launch(var, q, k, v, True, window), iters)
+    plain = device_ms(lambda: fa_ops.PLAIN[var](q, k, v, window=window),
+                      max(5, iters // 5))
     library, library_call, _ = timed(lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=True, enable_gqa=True), iters)
     elt = q.element_size()
@@ -1963,7 +2027,7 @@ def phi_int8_prefill(cfg, params, device) -> dict:
     agree = float((last.argmax(-1) == plain.argmax(-1)).float().mean())
     if rel > PREFILL_REL_LIMIT:
         raise AssertionError(f"11(c) prefill kernel vs eager: relative {rel}")
-    where_the_time_goes(cfg, params, tokens, S)
+    where_the_time_goes(cfg, params, {"tokens": tokens}, S)
     labels = [(layers_mod, "wcast", "dequantisation"),
               (moe_mod, "wcast", "dequantisation"),
               (moe_mod, "_experts", "expert GEMMs"),
@@ -2859,6 +2923,56 @@ def report_sharded(res) -> None:
         f"{sv['agree_eager'][1]:.3g}")
 
 
+# ---------------------------------------------------------------------------
+# phase 15: bf16 prefills at full width and depth through flash wgmma at
+# head dims 112, 96 and 256
+# ---------------------------------------------------------------------------
+
+
+def wide_prefills(device) -> dict:
+    """Zamba2-7B (81 layers, its shared attention at 13 slots),
+    Phi-3-Vision-4.2B (256 patch embeddings, then 1792 tokens) and
+    Gemma-7B (vocab 256000, tied), each at full width and depth in bf16,
+    one at a time: `timed_prefill` at B=2, S=2048, and the timed call's
+    launches held to one flash wgmma a slot or layer, no flash fma, and
+    three ssd_scan tc launches a Mamba2 layer."""
+    out = {}
+    for seed, arch in enumerate(FLASH_PREFILL, start=7):
+        t0 = time.perf_counter()
+        cfg = get_config(arch).scaled(attn_impl="pallas", dtype="bfloat16")
+        params = init_params(cfg, seed=0, device=device)
+        n_params = sum(t.numel() for t in tree_leaves(params))
+        batch = make_batch(cfg, np.random.default_rng(seed), 2, 2048,
+                           device=device)
+        before = launch_counts()
+        pf = timed_prefill(cfg, params, device, seed, batch=batch)
+        hybrid = cfg.family == "hybrid"
+        want = {"flash_attention.wgmma": sum(hybrid_attn_mask(cfg))
+                if hybrid else cfg.num_layers,
+                "flash_attention.fma": 0,
+                "ssd_scan.tc": 3 * cfg.num_layers if hybrid else 0}
+        got = {k: pf["launches"][k] for k in want}
+        if got != want:
+            raise AssertionError(f"{arch} prefill launched {got}, not {want}")
+        if pf["rel"] > PREFILL_REL_LIMIT:
+            raise AssertionError(f"{arch} prefill kernel vs eager: relative "
+                                 f"{pf['rel']}")
+        pf.update(params=n_params, positions_per_s=2 * 2048 / pf["wall_s"],
+                  path_launches={k: n - before[k]
+                                 for k, n in launch_counts().items()})
+        out[arch] = pf
+        log("prefill", f"{arch} full width and depth ({cfg.num_layers} "
+            f"layers, {n_params} params) bf16 B=2 S=2048: "
+            f"{1e3 * pf['wall_s']:.3f} ms, {pf['positions_per_s']:.1f} "
+            f"prompt positions/s, peak {pf['peak_bytes']} B; against the "
+            f"eager path: max |diff| / max |logit| {pf['rel']:.3g} (limit "
+            f"{PREFILL_REL_LIMIT}), top-1 agreement {pf['top1']}; one "
+            f"prefill launched {got}; {time.perf_counter() - t0:.1f} s")
+        del params, batch
+        free()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available", file=sys.stderr)
@@ -2890,9 +3004,12 @@ def main() -> int:
         # ptxas's C751x/C752x notes: it serialized the kernel's wgmma
         serial = [ln for ln in text.splitlines()
                   if "wgmma.mma_async instructions are serialized" in ln]
+        regs = sorted({int(ln.split("Used ")[1].split()[0])
+                       for ln in text.splitlines()
+                       if "Used " in ln and " registers" in ln})
         log("build", f"{name}: {len(spills)} ptxas lines with spills, "
-            f"{len(serial)} with serialized wgmma (log in "
-            f"build/torch_kernels/{name}.ptxas.log)")
+            f"{len(serial)} with serialized wgmma, registers a thread "
+            f"{regs} (log in build/torch_kernels/{name}.ptxas.log)")
 
     t0 = time.perf_counter()
     check_kernels(device)
@@ -2943,6 +3060,15 @@ def main() -> int:
             iters=20)))
     moe_tim = moe_attention_timings(device)
     tp16 = tp16_timings(device)
+    wide_tim = {"ssd": time_ssd(ZAMBA_PREFILL, bf16, device, "tc")}
+    log("timing", f"ssd_scan tc bf16 (b,s,h,p,n,chunk)={ZAMBA_PREFILL[:6]} "
+        f"(zamba2-7b's prefill, phase 15; three launches): "
+        f"{wide_tim['ssd']}")
+    for arch, case in FLASH_PREFILL.items():
+        wide_tim[arch] = time_flash(case, bf16, device, "wgmma", iters=20)
+        log("timing", f"flash_attention wgmma bf16 (B,H,Hkv,S,hd,win)="
+            f"{case[:4] + case[5:6] + case[7:]} causal ({arch}'s prefill, "
+            f"phase 15): {wide_tim[arch]}")
     free()
     # ssd_scan: tc at Mamba2's bf16 prefill shape (three launches)
     ssd = time_ssd(MAMBA_SHAPE, bf16, device, "tc")
@@ -3022,6 +3148,16 @@ def main() -> int:
         {k: n + shares["launches"][k] for k, n in launch_launches.items()})
     log("launch", f"phase 14 took {time.perf_counter() - t0:.1f} s here, "
         f"and {dist_res['sharded_wall_s']:.1f} s in phase 13's ranks")
+
+    # -- phase 15: bf16 prefills at full width and depth ----------------------
+    t0 = time.perf_counter()
+    zero_launches()
+    wide = wide_prefills(device)
+    paths["prefill"] = read_launches("prefill", ("flash_attention.wgmma",
+                                                 "ssd_scan.tc"))
+    if paths["prefill"]["flash_attention.fma"]:
+        raise AssertionError("flash fma was launched on the prefill path")
+    log("prefill", f"phase 15 took {time.perf_counter() - t0:.1f} s")
     launches = {k: sum(p[k] for p in paths.values())
                 for k in paths["smollm"]}
     log("timing", f"main-path launches per path: {paths}")
@@ -3064,6 +3200,13 @@ def main() -> int:
     da_vars["split"]["tp16_phi"] = tp16["decode_phi"]
     fa_vars["wgmma"]["tp16_mistral"] = tp16["flash_mistral"]
     fa_vars["wgmma"]["tp16_phi"] = tp16["flash_phi"]
+    for arch in FLASH_PREFILL:
+        fa_vars["wgmma"][f"{arch}_prefill"] = dict(
+            wide_tim[arch], launches=wide[arch]["path_launches"][
+                "flash_attention.wgmma"])
+    ssd_vars["tc"]["zamba2-7b_prefill"] = dict(
+        wide_tim["ssd"],
+        launches=wide["zamba2-7b"]["path_launches"]["ssd_scan.tc"])
     # the Mamba2 shape runs on the launch path (14(d)'s rank shares)
     ssd_vars["tc"]["tp16_mamba2"] = dict(
         tp16["ssd_mamba2"], launches=shares["launches"]["ssd_scan.tc"])

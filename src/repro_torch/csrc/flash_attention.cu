@@ -8,12 +8,17 @@
 // to query i when j <= i, and j > i - window when a window is set); rows
 // with no visible key give 0.
 //
+// What it takes: f32 at head dims 16, 32, 64, 96, 112, 128 and 256, and
+// bf16 at 16 and 32 (the reference's test shapes; no config uses them)
+// and at 64 and 128 (only to time it against flash_attention_wgmma.cu,
+// which takes every bf16 head dim a config uses: ops.py::variant picks).
+//
 // What bounds it: operations.  A causal pass does about 2 * B * H * S^2 * hd
 // flops against 4 * B * H * S * hd elements moved, so beyond a few hundred
-// positions it sits far above the H100's ~295 flops/byte ridge.  This
-// first version spends those flops on f32 FMAs in CUDA cores (67 TFLOP/s
-// peak) rather than on wgmma (989 TFLOP/s bf16): it is right and simple
-// first, and the tensor-core version is the known next step.
+// positions it sits far above the H100's ~295 flops/byte ridge.  It spends
+// those flops on f32 FMAs in CUDA cores (67 TFLOP/s peak): f32 has no
+// faster route (TF32's tensor cores would round the inputs), and its main
+// paths (decode-vs-forward checks at S <= 256) are short.
 //
 // Design: one block per (BQ-row q tile, b*h).  TPR consecutive threads own
 // one query row, each holding every TPR-th element of q and of the output
@@ -30,6 +35,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -171,15 +178,16 @@ template <typename T>
 cudaError_t dispatch(int hd, const void* q, const void* k, const void* v,
                      void* o, int B, int H, int Hkv, int Sq, int Sk,
                      int causal, int window, float scale, cudaStream_t s) {
-  switch (hd) {
 #define CASE(D) \
   case D:       \
     return launch<T, D>(q, k, v, o, B, H, Hkv, Sq, Sk, causal, window, scale, s);
-    CASE(16) CASE(32) CASE(64) CASE(96) CASE(112) CASE(128) CASE(256)
-#undef CASE
-    default:
-      return cudaErrorInvalidValue;
+  switch (hd) { CASE(16) CASE(32) CASE(64) CASE(128) }
+  // bf16 at 96, 112 and 256 is flash_attention_wgmma.cu's alone
+  if constexpr (std::is_same_v<T, float>) {
+    switch (hd) { CASE(96) CASE(112) CASE(256) }
   }
+#undef CASE
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace

@@ -1,10 +1,11 @@
-// Flash attention forward for bf16 at head dim 64 and 128 on Hopper
-// (sm_90a), with wgmma on the tensor cores.
+// Flash attention forward for bf16 at head dims 64, 96, 112, 128 and 256
+// on Hopper (sm_90a), with wgmma on the tensor cores.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention/kernel.py::
-// flash_attention_bhsd (body _flash_kernel) for bf16 inputs at hd 64 or
-// 128 (SmolLM-360M and MusicGen-large use 64, DeepSeek-Coder-33B and
-// Mistral-Large 128); every other dtype and head dim stays on
+// flash_attention_bhsd (body _flash_kernel) for bf16 inputs at these head
+// dims (SmolLM-360M and MusicGen-large use 64, Phi-3-Vision-4.2B 96,
+// Zamba2-7B 112, DeepSeek-Coder-33B, Mistral-Large and Phi-3.5-MoE 128,
+// Gemma-7B 256); f32, and bf16 at hd 16 and 32, stay on
 // flash_attention.cu (kernels/flash_attention/ops.py::variant picks).
 // It computes softmax(Q K^T * scale + mask) V with q (B, H, Sq, hd) and
 // k/v (B, Hkv, Sk, hd): q head h reads kv head h / (H / Hkv) (no K/V
@@ -17,16 +18,33 @@
 // sits far above the H100's ~295 flops/byte ridge: 16.1 GFLOP at
 // SmolLM's B=2, H=15, hd=64, or 0.016 ms at the 989 TFLOP/s bf16 peak.
 //
+// Head dims.  Shared memory holds hd in 64-column swizzle atoms (ATOMS =
+// ceil(hd / 64)).  At hd 96 and 112 the second atom runs past hd: the
+// tensor maps name the real hd as their inner dimension, so TMA fills the
+// columns past it with zeros (as it does rows past Sq and Sk) and still
+// counts the whole box's bytes on the mbarrier.  S = Q K^T walks hd / 16
+// k-steps only (6 or 7); O += P V issues its last atom at n64 over those
+// zero columns (1/3 more P V work at hd 96, 1/7 at hd 112: one
+// instruction shape, and the 128-byte-swizzled MN-major B operand that
+// n64 reads whole), and the store writes the columns below hd.  At hd 256
+// (four atoms) the O accumulator takes 128 f32 registers a consumer
+// thread, and registers bound the key tile: ptxas allocates every role
+// within the 168 registers a thread that the launch bound leaves (the
+// setmaxnreg split below does not raise that: at BK = 32 ptxas spills
+// and serializes the kernel's wgmma, C7512).  BK = 16 (S is m64n16k16:
+// 8 registers, P 4) fits with no spill, in 4 stages (129 KB).
+//
 // Design (the hopper-kernels guide, section 1):
 // - Roles.  A block owns 128 query rows of one (b, h) and has three
 //   warpgroups: a producer (one thread issues every copy) and two
 //   consumers of 64 rows each; setmaxnreg moves registers from the
-//   producer (40) to the consumers (232).  The consumers take turns at the
-//   tensor cores (named barriers, FA3's ping-pong): while one issues its
-//   products, the other runs its softmax.  The warpgroup index is read
-//   through a shuffle so that ptxas sees the role branches as uniform; a
-//   wgmma under a branch it cannot prove uniform makes it serialize every
-//   wgmma of the kernel (C7520).
+//   producer (40) to the consumers (232), though ptxas keeps the
+//   consumers' code within 168 (see "Head dims").  The consumers take
+//   turns at the tensor cores (named barriers, FA3's ping-pong): while
+//   one issues its products, the other runs its softmax.  The warpgroup
+//   index is read through a shuffle so that ptxas sees the role branches
+//   as uniform; a wgmma under a branch it cannot prove uniform makes it
+//   serialize every wgmma of the kernel (C7520).
 // - Products.  S = Q K^T is wgmma.mma_async m64nBKk16 with Q and K both
 //   K-major in shared memory.  P = exp2(S - m) is rounded to bf16 and fed
 //   from registers as the A operand of O += P V: the f32 accumulator
@@ -80,14 +98,17 @@ constexpr float LOG2E = 1.4426950408889634f;
 
 template <int HD, int BK, int STAGES>
 struct Cfg {
-  static constexpr int ATOMS = HD / 64;  // 64-column swizzle atoms of hd
-  static constexpr int Q_BYTES = BQ * HD * 2;
-  static constexpr int KV_BYTES = BK * HD * 2;  // one K or one V tile
+  // 64-column swizzle atoms of hd; the last one may run past hd
+  static constexpr int ATOMS = (HD + 63) / 64;
+  // whole boxes, zero columns included: what TMA writes and counts
+  static constexpr int Q_BYTES = BQ * ATOMS * 128;
+  static constexpr int KV_BYTES = BK * ATOMS * 128;  // one K or one V tile
   // + 1024: the swizzle repeats every 1024 bytes, so tiles start there
   static constexpr int SMEM = Q_BYTES + STAGES * 2 * KV_BYTES + 1024;
   // a consumer holds K_t (for S_t) and V_{t-1} (for P_{t-1} V_{t-1}) at
   // once, so STAGES - 2 tiles are in flight
-  static_assert(HD % 64 == 0 && BK % 16 == 0 && STAGES >= 3, "tile shape");
+  static_assert(HD % 16 == 0 && BK % 16 == 0 && STAGES >= 3, "tile shape");
+  static_assert(SMEM <= 232448, "over the 227 KB a block may use");
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -189,6 +210,19 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
          (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
 }
 
+// D (64 x 16, f32) (+)= A (64 x 16, K-major in shared memory) * B^T (B:
+// 16 x 16, K-major in shared memory).
+__device__ __forceinline__ void wgmma_ss_n16(float* d, uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // D (64 x 64, f32) (+)= A (64 x 16, K-major in shared memory) * B^T (B:
 // 64 x 16, K-major in shared memory).
 __device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da,
@@ -249,7 +283,10 @@ __device__ __forceinline__ void wgmma_rs_n64_tb(float* d, const uint32_t* a,
 template <int BK>
 __device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db,
                                          int scale_d) {
-  if constexpr (BK == 64)
+  static_assert(BK == 16 || BK == 64 || BK == 128, "key tile");
+  if constexpr (BK == 16)
+    wgmma_ss_n16(d, da, db, scale_d);
+  else if constexpr (BK == 64)
     wgmma_ss_n64(d, da, db, scale_d);
   else
     wgmma_ss_n128(d, da, db, scale_d);
@@ -519,6 +556,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     for (int a = 0; a < A; ++a)
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
+        if (64 * a + 8 * i >= HD) continue;  // the zero columns past hd
         const int col = 64 * a + 8 * i + cq;
         if (ra < Sq)
           *reinterpret_cast<__nv_bfloat162*>(
@@ -554,7 +592,8 @@ PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
 }
 
 // A 3-d map of (heads, rows, hd) bf16, row-major, read in boxes of 64
-// columns (one 128-byte swizzle atom) by `box_rows` rows of one head.
+// columns (one 128-byte swizzle atom) by `box_rows` rows of one head; a
+// box's columns past hd and rows past `rows` arrive as zeros.
 bool encode_map(CUtensorMap* map, const void* base, int hd, int rows,
                 int heads, int box_rows) {
   PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
@@ -600,8 +639,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 extern "C" {
 
 // bf16 only.  q/o (B, H, Sq, hd), k/v (B, Hkv, Sk, hd), all contiguous;
-// hd 64 or 128; B * H < 2^31 and ceil(Sq / 128) <= 65535; scale > 0 (the
-// row max is taken on unscaled scores).  Returns cudaError_t.
+// hd 64, 96, 112, 128 or 256; B * H < 2^31 and ceil(Sq / 128) <= 65535;
+// scale > 0 (the row max is taken on unscaled scores).  Returns
+// cudaError_t.
 int flash_attention_wgmma_launch(const void* q, const void* k, const void* v,
                                  void* o, int B, int H, int Hkv, int Sq,
                                  int Sk, int hd, int causal, int window,
@@ -610,13 +650,18 @@ int flash_attention_wgmma_launch(const void* q, const void* k, const void* v,
   if (Sq < 1 || Sk < 1 || Hkv < 1 || H % Hkv ||
       (Sq + BQ - 1) / BQ > 65535 || !(scale > 0.f))
     return cudaErrorInvalidValue;
-  if (hd == 64)
-    return launch<64, 128, 4>(q, k, v, o, B, H, Hkv, Sq, Sk, causal, window,
-                              scale, s);
-  if (hd == 128)
-    return launch<128, 64, 4>(q, k, v, o, B, H, Hkv, Sq, Sk, causal, window,
-                              scale, s);
-  return cudaErrorInvalidValue;
+  switch (hd) {
+#define CASE(D, K, N)                                                        \
+  case D:                                                                   \
+    return launch<D, K, N>(q, k, v, o, B, H, Hkv, Sq, Sk, causal, window,   \
+                           scale, s);
+    // (hd, key tile, stages): see "Head dims" at the top
+    CASE(64, 128, 4) CASE(96, 64, 4) CASE(112, 64, 4) CASE(128, 64, 4)
+    CASE(256, 16, 4)
+#undef CASE
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 const char* repro_cuda_error_string(int err) {

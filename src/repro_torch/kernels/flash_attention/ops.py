@@ -1,10 +1,10 @@
 """Flash attention wrappers: the device of the tensors picks the path.
 
 `variant` picks a kernel from the dtype and head dim, deterministically:
-- "wgmma": bf16 at head dim 64 or 128, `csrc/flash_attention_wgmma.cu`
-  (tensor cores);
-- "fma": f32 at every head dim in `_build.HEAD_DIMS`, and bf16 at the
-  others, `csrc/flash_attention.cu` (f32 FMAs);
+- "wgmma": bf16 at head dim 64, 96, 112, 128 or 256 (every head dim a
+  config uses), `csrc/flash_attention_wgmma.cu` (tensor cores);
+- "fma": f32 at every head dim in `_build.HEAD_DIMS`, and bf16 at 16 and
+  32 (the reference's test shapes), `csrc/flash_attention.cu` (f32 FMAs);
 and raises on anything else.  CPU tensors take the variant's plain
 version (`PLAIN`, from `ref.py`).  CUDA tensors launch the variant's
 hand-written kernel, or raise; nothing falls back.  `launches_by_variant`
@@ -21,7 +21,7 @@ import torch
 from .. import _build, refuse_grad
 from .ref import attention_ref
 
-WGMMA_HEAD_DIMS = (64, 128)
+WGMMA_HEAD_DIMS = (64, 96, 112, 128, 256)
 SOURCES = {"wgmma": "flash_attention_wgmma", "fma": "flash_attention"}
 PLAIN = {"wgmma": functools.partial(attention_ref, round_p=True),
          "fma": attention_ref}

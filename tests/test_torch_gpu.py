@@ -16,7 +16,8 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models import (decode_step, forward, init_cache, init_params,
                                 prefill)
-from repro_torch.models.model import init_quantized_params
+from repro_torch.launch.shapes import make_batch
+from repro_torch.models.model import hybrid_attn_mask, init_quantized_params
 from repro_torch.serve.engine import Request, ServeConfig, ServingEngine
 from repro_torch.train.step import loss_and_grads
 from repro_torch.workload.generators import OpStream, WorkloadSpec
@@ -104,8 +105,9 @@ def test_flash_kernel_matches_plain(cuda, case, dtype):
                                atol=TOL[dtype])
 
 
-# (B, H, Hkv, Sq, Sk, hd, causal, window): bf16 cases of the wgmma kernel,
-# hd 64 and 128, GQA, ragged Sq / Sk, windows, and rows with no visible key
+# (B, H, Hkv, Sq, Sk, hd, causal, window): bf16 cases of the wgmma kernel
+# at every head dim it takes, GQA, ragged Sq / Sk, windows, and rows with
+# no visible key
 WGMMA_CASES = [
     (2, 15, 5, 2048, 2048, 64, True, 0), (2, 15, 5, 2000, 2000, 64, True, 0),
     (2, 15, 5, 2048, 2048, 64, True, 256), (1, 56, 8, 2048, 2048, 128, True,
@@ -113,6 +115,15 @@ WGMMA_CASES = [
     (1, 4, 2, 130, 130, 128, True, 40), (1, 6, 2, 300, 200, 128, False, 0),
     (1, 4, 4, 200, 300, 64, True, 0), (1, 2, 2, 48, 16, 64, False, 8),
     (1, 2, 1, 40, 40, 128, False, 8), (3, 8, 8, 1, 77, 64, False, 0),
+    # hd 112, 96 and 256: Zamba2-7B's, Phi-3-Vision-4.2B's and Gemma-7B's
+    # prefill shapes, then GQA, ragged, window and no-visible-key cases
+    (2, 32, 32, 2048, 2048, 112, True, 32768),
+    (2, 32, 32, 2048, 2048, 96, True, 0), (2, 16, 16, 2048, 2048, 256, True,
+                                           0),
+    (1, 8, 2, 200, 200, 96, True, 0), (1, 4, 4, 130, 130, 112, True, 40),
+    (1, 6, 2, 300, 200, 112, False, 0), (1, 4, 2, 130, 130, 256, True, 40),
+    (1, 8, 2, 200, 300, 256, True, 0), (1, 2, 2, 48, 16, 96, False, 8),
+    (1, 2, 2, 48, 16, 256, False, 8),
 ]
 
 
@@ -169,6 +180,32 @@ def test_bf16_prefill_launches_each_variant(cuda, arch):
     assert ssd_ops.launches_by_variant == {"tc": 3 * ssd_layers, "fma": 0}
     assert fa_ops.launches == sum(expected_fa.values())
     assert ssd_ops.launches == 3 * ssd_layers
+
+
+@pytest.mark.parametrize("arch,hd", [("zamba2-7b", 112),
+                                     ("phi-3-vision-4.2b", 96),
+                                     ("gemma-7b", 256)])
+def test_bf16_prefill_at_wide_head_dims_launches_wgmma(cuda, arch, hd):
+    """The smoke configs of the archs whose bf16 attention is at head dims
+    112, 96 and 256, at those head dims: one wgmma flash launch a layer or
+    shared-attention slot, none of the FMA kernel, logits near the eager
+    path's."""
+    cfg = smoke_config(arch).scaled(dtype="bfloat16", attn_impl="pallas",
+                                    head_dim=hd)
+    params = init_params(cfg, seed=0, device=cuda)
+    S = 2 * cfg.ssm_chunk if cfg.family == "hybrid" else 100
+    batch = make_batch(cfg, np.random.default_rng(1), 2, S, device=cuda)
+    fa_ops.zero_launches()
+    logits = prefill(params, batch, cfg, S)
+    torch.cuda.synchronize()
+    assert logits.shape == (2, cfg.vocab_size)
+    assert torch.isfinite(logits).all()
+    slots = sum(hybrid_attn_mask(cfg)) if cfg.family == "hybrid" \
+        else cfg.num_layers
+    assert fa_ops.launches_by_variant == {"wgmma": slots, "fma": 0}
+    plain = prefill(params, batch, cfg.scaled(attn_impl="xla"), S)
+    rel = float((logits - plain).abs().max() / plain.abs().max())
+    assert rel < 0.1
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
@@ -321,6 +358,11 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     q = torch.zeros(1, 2, 8, 48, device=cuda)          # head dim 48
     with pytest.raises(ValueError, match="unsupported"):
         fa_ops.flash_attention_bhsd(q, q, q)
+    # bf16 at hd 96, 112 and 256 is the wgmma kernel's alone
+    for hd in (96, 112, 256):
+        q = torch.zeros(1, 2, 8, hd, dtype=torch.bfloat16, device=cuda)
+        with pytest.raises(RuntimeError, match="fma"):
+            fa_ops._launch("fma", q, q, q, True, 0)
     q = torch.zeros(1, 2, 64, dtype=torch.float16, device=cuda)
     k = torch.zeros(1, 1, 8, 64, dtype=torch.float16, device=cuda)
     with pytest.raises(TypeError):

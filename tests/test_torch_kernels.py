@@ -34,6 +34,14 @@ FA_SHAPES = [
     (1, 4, 2, 64, 64, 32, 16, 16, True, 24),      # sliding window
     (1, 2, 2, 48, 48, 16, 16, 16, False, 0),      # bidirectional
     (1, 6, 2, 40, 40, 32, 16, 16, True, 0),       # rep=3, as SmolLM's GQA
+] + [
+    # the head dims of Phi-3-Vision-4.2B, Zamba2-7B and Gemma-7B, which the
+    # wgmma kernel takes in bf16: causal, GQA, ragged tail, window + MQA
+    case for hd in (96, 112, 256) for case in (
+        (1, 2, 2, 64, 64, hd, 16, 16, True, 0),
+        (1, 4, 2, 48, 48, hd, 16, 16, True, 0),
+        (1, 2, 2, 40, 40, hd, 16, 16, True, 0),
+        (1, 2, 1, 64, 64, hd, 16, 16, True, 24))
 ]
 
 DA_SHAPES = [
@@ -161,9 +169,9 @@ def test_flash_ref_with_bf16_p_gives_zero_on_fully_masked_rows():
 
 
 def test_flash_variant_dispatch():
-    """bf16 at head dim 64 or 128 goes to the wgmma kernel; f32 at every
-    head dim the kernels take, and bf16 at the others, to the FMA kernel;
-    anything else raises."""
+    """bf16 at head dim 64, 96, 112, 128 or 256 goes to the wgmma kernel;
+    f32 at every head dim the kernels take, and bf16 at 16 and 32, to the
+    FMA kernel; anything else raises."""
     for hd in (8, 16, 32, 48, 64, 96, 112, 128, 256, 512):
         if hd not in (16, 32, 64, 96, 112, 128, 256):
             for dtype in (torch.float32, torch.bfloat16):
@@ -172,7 +180,7 @@ def test_flash_variant_dispatch():
             continue
         assert fa_ops.variant(torch.float32, hd) == "fma"
         assert fa_ops.variant(torch.bfloat16, hd) == \
-            ("wgmma" if hd in (64, 128) else "fma")
+            ("wgmma" if hd in (64, 96, 112, 128, 256) else "fma")
         with pytest.raises(TypeError):
             fa_ops.variant(torch.float16, hd)
 
@@ -293,3 +301,39 @@ def test_decode_split_rules():
     assert {split_tile(hd, 2) for hd in (16, 64, 96, 112, 128, 256)} == {64}
     assert [split_tile(hd, 4) for hd in (16, 64, 96, 112, 128, 256)] == \
         [64, 16, 8, 8, 8, 4]
+
+
+# the head dims the wgmma kernel took over from the FMA kernel in bf16
+WIDE_HEAD_DIMS = (96, 112, 256)
+
+
+@pytest.mark.parametrize("hd", WIDE_HEAD_DIMS)
+def test_flash_ref_with_bf16_p_at_wide_head_dims_zeroes_rows_with_no_key(hd):
+    """Bidirectional, Sk < Sq, window 8: rows 23 on see no key.  The plain
+    version gives them 0 and the rows that see a key the Pallas kernel's
+    values (the Pallas kernel's masked rows are not 0: see
+    test_flash_fully_masked_rows_give_zero)."""
+    (jq, jk, jv), (tq, tk, tv) = _inputs(
+        [(1, 2, 48, hd), (1, 2, 16, hd), (1, 2, 16, hd)], "bfloat16", 9)
+    ref = flash_attention_bhsd(jq, jk, jv, causal=False, window=8,
+                               block_q=16, block_k=16, interpret=True)
+    port = attention_ref(tq, tk, tv, causal=False, window=8, round_p=True)
+    assert torch.equal(port[:, :, 23:], torch.zeros_like(port[:, :, 23:]))
+    _close(port[:, :, :23], np.asarray(ref, np.float32)[:, :, :23],
+           "bfloat16")
+
+
+@pytest.mark.parametrize("hd", WIDE_HEAD_DIMS)
+def test_flash_wrapper_on_cpu_takes_wgmmas_plain_version_for_bf16(hd):
+    """On CPU tensors the wrapper at these head dims computes what each
+    dtype's kernel computes on the card: bf16 P rounded (wgmma), f32 not
+    (FMA), and launches nothing."""
+    fa_ops.zero_launches()
+    _, (q, k, v) = _inputs([(1, 4, 30, hd), (1, 2, 30, hd), (1, 2, 30, hd)],
+                           "float32", 10)
+    b16 = [t.to(torch.bfloat16) for t in (q, k, v)]
+    assert torch.equal(fa_ops.flash_attention_bhsd(*b16, window=12),
+                       attention_ref(*b16, window=12, round_p=True))
+    assert torch.equal(fa_ops.flash_attention_bhsd(q, k, v, window=12),
+                       attention_ref(q, k, v, window=12))
+    assert fa_ops.launches_by_variant == {"wgmma": 0, "fma": 0}

@@ -35,8 +35,16 @@ def _setup(arch, seed=0, **kw):
     return cfg, jp, tp
 
 
+def _tensor(v):
+    """A numpy or JAX array as a tensor; bf16 through f32 (exact)."""
+    a = np.array(v)
+    if a.dtype == ml_dtypes.bfloat16:
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
 def _tbatch(batch):
-    return {k: torch.from_numpy(np.array(v)) for k, v in batch.items()}
+    return {k: _tensor(v) for k, v in batch.items()}
 
 
 @pytest.mark.parametrize("impl", ["xla", "pallas"])
@@ -72,6 +80,34 @@ def test_bf16_prefill_matches_jax(impl, head_dim):
     jp = j_init_params(jax.random.PRNGKey(6), cfg)
     tp = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
     batch = make_batch(cfg, np.random.default_rng(3), batch=2, seq=64)
+    ref = j_prefill(jp, batch, cfg, 64)
+    out = tm.prefill(tp, _tbatch(batch), cfg, 64)
+    assert out.shape == (2, cfg.vocab_size) and torch.isfinite(out).all()
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(ref, np.float32),
+                               rtol=2e-2, atol=2e-2)
+
+
+# the archs whose bf16 attention runs at head dims 112, 96 and 256 (their
+# full configs' own), on smoke widths and depths
+WIDE_HEAD_DIMS = {"zamba2-7b": 112, "phi-3-vision-4.2b": 96, "gemma-7b": 256}
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+@pytest.mark.parametrize("arch", list(WIDE_HEAD_DIMS))
+def test_bf16_prefill_at_wide_head_dims_matches_jax(arch, impl):
+    """Zamba2-7B's, Phi-3-Vision-4.2B's and Gemma-7B's smoke configs at
+    their real head dims in bf16: the port's prefill logits against JAX's
+    on the same converted parameters (patch embeddings first for the VLM),
+    within the reference's bf16 tolerance.  The pallas path's attention
+    takes the wgmma kernel's plain version there."""
+    cfg = smoke_config(arch).scaled(remat=False, dtype="bfloat16",
+                                    attn_impl=impl,
+                                    head_dim=WIDE_HEAD_DIMS[arch])
+    assert fa_ops.variant(torch.bfloat16, cfg.resolved_head_dim) == "wgmma"
+    jp = j_init_params(jax.random.PRNGKey(8), cfg)
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
+    batch = make_batch(cfg, np.random.default_rng(4), batch=2, seq=64)
     ref = j_prefill(jp, batch, cfg, 64)
     out = tm.prefill(tp, _tbatch(batch), cfg, 64)
     assert out.shape == (2, cfg.vocab_size) and torch.isfinite(out).all()
