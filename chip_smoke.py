@@ -15,12 +15,18 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      KV head, 5 and 7 Mamba2 heads), and phase 15's prefill attention
      (Zamba2-7B's hd 112 with its window, Phi-3-Vision-4.2B's hd 96,
      Gemma-7B's hd 256, each head dim also with GQA, a ragged tail, a
-     window and rows with no visible key), f32 and bf16; each
-     case runs on the variant that `ops.variant` picks for it (flash:
+     window and rows with no visible key), and the fma kernel's edges
+     at every f32 head dim (FMA_EDGES, also on each of its tilings), f32
+     and bf16; each case runs on the variant that `ops.variant` picks for
+     it (flash:
      wgmma for bf16 at hd 64/96/112/128/256, fma for f32 and for bf16 at
      hd 16/32; ssd_scan: tc for bf16, fma for f32);
   4. SmolLM-360M at full width in f32: token-by-token decode_step logits
      (decode kernel) against the forward pass (flash fma kernel), 2e-3;
+     then a B=2 x 2048 f32 prefill at full width and depth through the
+     kernels, timed and profiled as phase 5's, flash fma launched once a
+     layer (32) and flash wgmma never, against the eager f32 path (TF32
+     off) within F32_PREFILL_REL_LIMIT, top-1 agreement 1;
   5. serving: SmolLM-360M at full width in bf16, 8 slots, 16 requests;
      then a bf16 prefill of B=2 x 2048 tokens (flash wgmma kernel),
      timed, against the eager path;
@@ -35,12 +41,14 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      same function (the port never calls it); decode_attention also at
      the full-context step's shape, at DeepSeek-Coder-33B's heads over
      a 16384-token cache, at the f32 shapes of phases 4 and 7, and at one
-     split fewer and more than its rule picks; every kernel at phase 3's
-     TP-16 rank shapes in bf16; flash wgmma at phase 15's three
-     shapes and ssd_scan tc at its Zamba2-7B shape.  `ms`, `plain_ms` and
-     `library_ms` are device time per call (the kernels' durations from
-     torch.profiler); `call_ms` is CUDA-event time over back-to-back
-     calls, which the host's launch cost bounds at small shapes;
+     split fewer and more than its rule picks; flash fma in f32 at
+     B=2, S=2048 at every head dim a config uses (FLASH_F32_LONG); every
+     kernel at phase 3's TP-16 rank shapes in bf16; flash wgmma at phase
+     15's three shapes and ssd_scan tc at its Zamba2-7B shape.  `ms`,
+     `plain_ms` and `library_ms` are device time per call: `call_ms`
+     (CUDA-event time over back-to-back calls) where the calls kept the
+     device busy, else the kernels' durations from torch.profiler, since
+     the host's launch cost bounds `call_ms` at small shapes;
   9. training: SmolLM-360M at full width in bf16 (remat full, eager
      attention, AdamW) on the deterministic token stream, 4 x 2048
      tokens a step, 10 steps: loss and grad_norm per step (finite, the
@@ -201,6 +209,7 @@ from __future__ import annotations
 import contextlib
 import cProfile
 import gc
+import itertools
 import json
 import os
 import pstats
@@ -361,11 +370,39 @@ FLASH_CASES += list(FLASH_PREFILL.values()) + [
     case for hd in (96, 112, 256) for case in (
         (1, 8, 2, 200, 200, hd, True, 0), (1, 4, 4, 130, 130, hd, True, 0),
         (1, 4, 2, 300, 300, hd, True, 64), (1, 2, 2, 48, 16, hd, False, 8))]
+# the fma kernel's edges at every f32 head dim: Sq and Sk off the 16-, 32-
+# and 64-row query tiles and the 32-key tile (on the tilings
+# ops.fma_tiling picks: 64, 32 and 16 rows a block, one and two warps a
+# row group), bidirectional Sk < Sq, a window inside one key
+# tile, GQA 4:1, rows that see no key, and S = 64 at 30 and 64 (b, h)
+# pairs (phases 4 and 11(a)); phase 3 also runs each on every tiling
+# (rows a block, warps a row group)
+FMA_EDGES = [
+    case for hd in _build.HEAD_DIMS for case in (
+        (1, 4, 2, 77, 77, hd, True, 0), (2, 32, 8, 300, 300, hd, True, 0),
+        (1, 40, 10, 100, 77, hd, True, 20), (1, 2, 2, 70, 45, hd, False, 0),
+        (1, 2, 2, 100, 100, hd, True, 5), (1, 8, 2, 100, 100, hd, True, 0),
+        (1, 2, 2, 48, 16, hd, False, 8), (2, 15, 5, 64, 64, hd, True, 0),
+        (2, 32, 8, 64, 64, hd, True, 0))]
+FLASH_CASES += [case for case in FMA_EDGES if case not in FLASH_CASES]
 SMOLLM_FLASH = (2, 15, 5, 2048, 2048, 64, True, 0)
+# the fma kernel at B=2, S=2048, causal, at every head dim a config uses
+# (phase 8; SmolLM-360M's is phase 4's f32 prefill attention)
+FLASH_F32_LONG = {"smollm-360m": SMOLLM_FLASH,
+                  "phi-3-vision-4.2b": (2, 32, 32, 2048, 2048, 96, True, 0),
+                  "zamba2-7b": (2, 32, 32, 2048, 2048, 112, True, 32768),
+                  "phi3.5-moe": (2, 32, 8, 2048, 2048, 128, True, 0),
+                  "gemma-7b": (2, 16, 16, 2048, 2048, 256, True, 0)}
 # the eager path rounds scores to bf16 before its softmax (up to ~2 % per
 # probability at |s| ~ 8) where the kernel keeps them f32; 32 layers
 # compound that.  A mis-masked or mis-scaled tile moves logits by O(1).
 PREFILL_REL_LIMIT = 0.1
+# phase 4's f32 prefill against the eager f32 path, TF32 off in both: the
+# two differ only in the order of f32 sums (the kernel's online softmax
+# over 32-key tiles, cuBLAS's blocked products), ~1e-6 of a logit a layer;
+# the reference's f32 kernel tolerance over a longer sum is 1e-4
+# (TOL_LONG_F32).  A mis-masked or mis-scaled tile moves logits by O(1).
+F32_PREFILL_REL_LIMIT = 1e-4
 # (b, s, h, p, n, chunk, strong decay): the reference's SSD_SHAPES,
 # Mamba2-2.7B's and Zamba2-7B's shapes, and A = -16, dt = 0.1, where
 # exp(cum_i - cum_j) above the diagonal overflows to +inf
@@ -414,9 +451,13 @@ def device_kernels(fn, iters: int, warmup: int = 3) -> dict:
     """Device time per call by kernel name: the durations of the kernels
     the calls launched, from torch.profiler, over `iters` calls.  Unlike
     `cuda_ms` it leaves out the host's time between launches, which at
-    small shapes is longer than the kernel.  Where the profiler records
-    no kernel in five runs, the calls are timed with CUDA events instead
-    (one entry, `NO_PROFILE`), and a line says so."""
+    small shapes is longer than the kernel.  A kernel's time is the mean
+    of its recorded launches times its launches a call (ceil(records /
+    iters)): late in a long process the profiler can drop a few records
+    of a session (a line says so), and dividing their sum by `iters`
+    would then read low.  Where the profiler records no kernel in five
+    runs, the calls are timed with CUDA events instead (one entry,
+    `NO_PROFILE`), and a line says so."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
@@ -429,43 +470,62 @@ def device_kernels(fn, iters: int, warmup: int = 3) -> dict:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        out = {}
+        out, short = {}, []
         for e in prof.key_averages():
             if e.device_type == DeviceType.CUDA and dev_us(e) > 0:
                 name = kernel_name(e.key)
-                out[name] = out.get(name, 0.0) + dev_us(e) / 1e3 / iters
+                per_call = -(-e.count // iters)
+                if e.count != per_call * iters:
+                    short.append(f"{name} {e.count}/{per_call * iters}")
+                out[name] = (out.get(name, 0.0)
+                             + dev_us(e) / 1e3 / e.count * per_call)
+        if short:
+            log("timing", f"torch.profiler kept fewer kernel records than "
+                f"launched ({', '.join(short)}): timed by the recorded ones")
         if out:
             return out
-    ms = cuda_ms(fn, iters)
+    ms = cuda_ms(fn, iters)[0]
     log("timing", f"torch.profiler recorded no kernel in five runs: "
         f"{ms:.5f} ms a call by CUDA events (host launch time included)")
     return {NO_PROFILE: ms}
 
 
 def device_ms(fn, iters: int) -> float:
-    return sum(device_kernels(fn, iters).values())
+    return timed(fn, iters)[0]
 
 
 def timed(fn, iters: int) -> tuple[float, float, dict]:
     """(device ms per call, ms per call by CUDA events over back-to-back
     calls, which includes the host's launch time where that is longer,
-    device ms per call by kernel)."""
+    device ms per call by kernel).  The device ms is the CUDA-event time
+    where the calls kept the device busy (the host enqueued them in under
+    half of it), else the sum of the profiler's kernel durations, which
+    leaves out the host's time between launches at small shapes.  Late in
+    this long process the profiler drops and misreads some records of a
+    session (a long kernel read 0.3x to 1.07x its event time; PERF.md
+    §7), so it is not used where the events suffice."""
     kernels = device_kernels(fn, iters)
-    return sum(kernels.values()), cuda_ms(fn, iters), kernels
+    call, host = cuda_ms(fn, iters)
+    return (call if 2 * host < call else sum(kernels.values())), call, \
+        kernels
 
 
-def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
+def cuda_ms(fn, iters: int, warmup: int = 3) -> tuple[float, float]:
+    """(ms per call by CUDA events over `iters` back-to-back calls, the
+    host's ms per call to enqueue them)."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     start.record()
+    t0 = time.perf_counter()
     for _ in range(iters):
         fn()
+    host = 1e3 * (time.perf_counter() - t0) / iters
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return start.elapsed_time(end) / iters, host
 
 
 def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
@@ -579,6 +639,25 @@ def check_kernels(device) -> None:
             log("kernel", f"flash_attention {var} {dname} (B,H,Hkv,Sq,Sk,hd,"
                 f"causal,win)={case}: max_abs_err {err:.3g} "
                 f"(rtol = atol = {tol})")
+        for case in FMA_EDGES:
+            if fa_ops.variant(dtype, case[5]) != "fma":
+                continue
+            q, k, v = flash_inputs(case, dtype, device, seed=1)
+            causal, window = case[6], case[7]
+            ref = fa_ops.PLAIN["fma"](q, k, v, causal=causal, window=window)
+            errs = {}
+            for tiling in itertools.product(fa_ops.Q_TILES,
+                                            fa_ops.HD_SPLITS):
+                out = fa_ops._launch("fma", q, k, v, causal, window, tiling)
+                torch.cuda.synchronize()
+                errs[tiling] = compare(f"flash fma {case} {dname} at tiling "
+                                       f"{tiling}", out, ref, TOL[dname])
+            worst = max(errs.values())
+            rule = fa_ops.fma_tiling(case[0], case[1], case[3], case[5], sms)
+            log("kernel", f"flash_attention fma {dname} {case} on all "
+                f"{len(errs)} tilings (rows a block, warps a row group): "
+                f"max_abs_err {worst:.3g} (rtol = atol = {TOL[dname]}; the "
+                f"rule picks {rule})")
         for case in SSD_CASES:
             x, dt, A, B, C = ssd_inputs(case, dtype, device)
             var = ssd_ops.variant(dtype, case[3], case[4], case[5])
@@ -753,6 +832,8 @@ def smollm_path(device):
     log("decode-vs-forward", f"smollm-360m full width ({n_params} "
         f"params) f32 B=2 S=64: max_abs_err {err:.3g} "
         "(rtol = atol = 2e-3)")
+    pf32 = f32_prefill(cfg32, params32, device)
+    free()
 
     cfg16 = base.scaled(dtype="bfloat16")
     params16 = init_params(cfg16, seed=0, device=device)
@@ -782,37 +863,62 @@ def smollm_path(device):
         f"agreement {agree}")
     if rel > PREFILL_REL_LIMIT:
         raise AssertionError(f"prefill kernel vs eager: relative {rel}")
-    return dec_len, fc
+    return dec_len, fc, pf32
 
 
-def timed_prefill(cfg16, params16, device, seed, S=2048, batch=None):
-    """A warm-up and a timed bf16 prefill of B=2 x S positions through the
-    kernels (`batch`, or seeded tokens), then the eager path's on the same
-    inputs, and one profiled call.  Returns the timed call's seconds
-    (`wall_s`), launches per kernel variant and peak memory since the
-    warm-up began, max |diff| / max |logit| against the eager path
-    (`rel`), top-1 agreement and the profile."""
+def f32_prefill(cfg32, params32, device) -> dict:
+    """Phase 4's f32 prefill: SmolLM-360M at full width and depth, B=2 x
+    2048 tokens through the kernels (`timed_prefill`); the timed call
+    launches flash fma once a layer and flash wgmma never, and its logits
+    are held to the eager f32 path's (TF32 off) within
+    F32_PREFILL_REL_LIMIT, top-1 agreement 1."""
+    pf = timed_prefill(cfg32, params32, device, seed=3)
+    want = {"flash_attention.fma": cfg32.num_layers,
+            "flash_attention.wgmma": 0}
+    got = {k: pf["launches"][k] for k in want}
+    if got != want:
+        raise AssertionError(f"f32 prefill launched {got}, not {want}")
+    if pf["rel"] > F32_PREFILL_REL_LIMIT or pf["top1"] != 1.0:
+        raise AssertionError(f"f32 prefill kernel vs eager: relative "
+                             f"{pf['rel']}, top-1 agreement {pf['top1']}")
+    pf["tokens_per_s"] = 2 * 2048 / pf["wall_s"]
+    log("prefill", f"smollm-360m full width f32 B=2 S=2048: "
+        f"{1e3 * pf['wall_s']:.3f} ms, {pf['tokens_per_s']:.1f} prompt "
+        f"tokens/s, peak {pf['peak_bytes']} B; against the eager f32 path "
+        f"(TF32 off): max |diff| / max |logit| {pf['rel']:.3g} (limit "
+        f"{F32_PREFILL_REL_LIMIT}), top-1 agreement {pf['top1']}; one "
+        f"prefill launched {got}")
+    return pf
+
+
+def timed_prefill(cfg, params, device, seed, S=2048, batch=None):
+    """A warm-up and a timed prefill of B=2 x S positions through the
+    kernels in `cfg`'s dtype (`batch`, or seeded tokens), then the eager
+    path's on the same inputs, and one profiled call.  Returns the timed
+    call's seconds (`wall_s`), launches per kernel variant and peak memory
+    since the warm-up began, max |diff| / max |logit| against the eager
+    path (`rel`), top-1 agreement and the profile."""
     if batch is None:
         batch = {"tokens": torch.from_numpy(np.random.default_rng(
-            seed).integers(0, cfg16.vocab_size, (2, S))).to(device)}
+            seed).integers(0, cfg.vocab_size, (2, S))).to(device)}
     torch.cuda.reset_peak_memory_stats()
-    prefill(params16, batch, cfg16, S)   # warm-up
+    prefill(params, batch, cfg, S)   # warm-up
     torch.cuda.synchronize()
     before = launch_counts()
     t0 = time.perf_counter()
-    last = prefill(params16, batch, cfg16, S)
+    last = prefill(params, batch, cfg, S)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launched = {k: n - before[k] for k, n in launch_counts().items()}
     peak = torch.cuda.max_memory_allocated()
-    plain = prefill(params16, batch, cfg16.scaled(attn_impl="xla"), S)
-    if last.shape != (2, cfg16.vocab_size) or not torch.isfinite(last).all():
+    plain = prefill(params, batch, cfg.scaled(attn_impl="xla"), S)
+    if last.shape != (2, cfg.vocab_size) or not torch.isfinite(last).all():
         raise AssertionError(f"prefill logits {tuple(last.shape)} not finite")
     rel = float((last - plain).abs().max() / plain.abs().max())
     agree = float((last.argmax(-1) == plain.argmax(-1)).float().mean())
     return dict(wall_s=wall, launches=launched, peak_bytes=peak, rel=rel,
-                top1=agree, profile=where_the_time_goes(cfg16, params16,
-                                                        batch, S))
+                top1=agree, profile=where_the_time_goes(cfg, params, batch,
+                                                        S))
 
 
 def kernel_name(key: str) -> str:
@@ -3030,7 +3136,7 @@ def main() -> int:
         out = run(device)
         paths[path] = read_launches(path, needed)
         if path == "smollm":
-            dec_len, full_ctx = out
+            dec_len, full_ctx, f32_pf = out
         free()
         log(path, f"path took {time.perf_counter() - t0:.1f} s")
 
@@ -3041,8 +3147,10 @@ def main() -> int:
         log("timing", f"decode_attention bf16 len={length}: " + str(
             time_decode((8, 15, 5, 512, 64, length, 0), bf16, device)))
     # flash: the wgmma variant at SmolLM's bf16 prefill shape; the fma
-    # variant at its own main-path shape (f32, phase 4's S=64) and, for the
-    # time before the redesign, at the bf16 prefill shape
+    # variant at its main-path shapes (f32: phase 4's S=64 and, in
+    # moe_attention_timings, 11(a)'s), at B=2, S=2048 at every head dim a
+    # config uses (SmolLM-360M's is phase 4's f32 prefill), and in bf16 at
+    # SmolLM's prefill shape (the wgmma kernel's time before it)
     fla = time_flash(SMOLLM_FLASH, bf16, device, "wgmma", iters=50)
     log("timing", f"flash_attention wgmma bf16 B=2 H=15 Hkv=5 S=2048 hd=64 "
         f"causal: {fla}")
@@ -3050,10 +3158,16 @@ def main() -> int:
                          iters=200)
     log("timing", f"flash_attention fma f32 B=2 H=15 Hkv=5 S=64 hd=64 "
         f"causal: {fla_fma}")
-    for dtype in (bf16, f32):
-        log("timing", f"flash_attention fma {dtype} B=2 H=15 Hkv=5 S=2048 "
-            "hd=64 causal (bf16: the time before the redesign): " + str(
-                time_flash(SMOLLM_FLASH, dtype, device, "fma", iters=20)))
+    fma_long = {}
+    for arch, case in FLASH_F32_LONG.items():
+        fma_long[arch] = time_flash(case, f32, device, "fma", iters=10)
+        log("timing", f"flash_attention fma f32 (B,H,Hkv,S,hd,win)="
+            f"{case[:4] + case[5:6] + case[7:]} causal ({arch}'s heads): "
+            f"{fma_long[arch]}")
+    free()
+    log("timing", "flash_attention fma bf16 B=2 H=15 Hkv=5 S=2048 hd=64 "
+        "causal (the wgmma kernel's time before it): " + str(
+            time_flash(SMOLLM_FLASH, bf16, device, "fma", iters=20)))
     log("timing", "flash_attention wgmma bf16 B=1 H=56 Hkv=8 S=2048 hd=128 "
         "causal (DeepSeek-Coder-33B's heads): " + str(time_flash(
             (1, 56, 8, 2048, 2048, 128, True, 0), bf16, device, "wgmma",
@@ -3182,6 +3296,11 @@ def main() -> int:
     fa_vars["wgmma"]["phi_prefill"] = moe_tim["flash_phi"]
     fa_vars["wgmma"]["kimi"] = moe_tim["flash_kimi"]
     fa_vars["fma"]["phi_f32"] = moe_tim["flash_phi_f32"]
+    for arch, timing in fma_long.items():
+        fa_vars["fma"][f"{arch}_f32_s2048"] = dict(
+            timing, launches=f32_pf["launches"]["flash_attention.fma"]
+            if arch == "smollm-360m" else 0)
+    fa_vars["fma"]["smollm_f32_prefill"] = f32_pf
     ssd_vars["fma"]["at_s2048"] = tim["ssd_fma_2048"]
     ssd_vars["fma"]["zamba2_s256"] = tim["ssd_fma_256_zamba"]
     da_vars = {"split": variant("decode_attention", "split",

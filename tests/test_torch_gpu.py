@@ -3,6 +3,7 @@ the model and engine through them.  Skips without a card; run there with
 `PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py`."""
 
 import importlib.util
+import itertools
 from pathlib import Path
 
 import numpy as np
@@ -125,6 +126,46 @@ WGMMA_CASES = [
     (1, 8, 2, 200, 300, 256, True, 0), (1, 2, 2, 48, 16, 96, False, 8),
     (1, 2, 2, 48, 16, 256, False, 8),
 ]
+
+
+# (B, H, Hkv, Sq, Sk, hd, causal, window): the fma kernel's edges at every
+# head dim it takes in f32 (chip_smoke.py's FMA_EDGES): Sq and Sk off the
+# 16-, 32- and 64-row query tiles and the 32-key tile, bidirectional
+# Sk < Sq, a window inside one key tile, GQA 4:1, rows that see no key,
+# and S = 64 at 30 and 64 (b, h) pairs
+FMA_EDGES = [
+    case for hd in (16, 32, 64, 96, 112, 128, 256) for case in (
+        (1, 4, 2, 77, 77, hd, True, 0), (2, 32, 8, 300, 300, hd, True, 0),
+        (1, 40, 10, 100, 77, hd, True, 20), (1, 2, 2, 70, 45, hd, False, 0),
+        (1, 2, 2, 100, 100, hd, True, 5), (1, 8, 2, 100, 100, hd, True, 0),
+        (1, 2, 2, 48, 16, hd, False, 8), (2, 15, 5, 64, 64, hd, True, 0),
+        (2, 32, 8, 64, 64, hd, True, 0))]
+
+
+@pytest.mark.parametrize("case", FMA_EDGES)
+def test_flash_fma_kernel_on_every_tiling(cuda, case):
+    """The fma kernel in f32 (and in bf16 at hd 16 and 32) on the tiling
+    ops.fma_tiling picks and on each of 64, 32 and 16 query rows a block
+    with one and two warps a row group, against its plain version; rows
+    that see no key give 0."""
+    B, H, Hkv, Sq, Sk, hd, causal, window = case
+    dtypes = ["float32"] + (["bfloat16"] if hd <= 32 else [])
+    for dtype in dtypes:
+        gen = torch.Generator(device=cuda).manual_seed(3)
+        q = _randn(gen, (B, H, Sq, hd), DTYPES[dtype], cuda)
+        k = _randn(gen, (B, Hkv, Sk, hd), DTYPES[dtype], cuda)
+        v = _randn(gen, (B, Hkv, Sk, hd), DTYPES[dtype], cuda)
+        ref = fa_ops.PLAIN["fma"](q, k, v, causal=causal, window=window)
+        for tiling in [None] + list(itertools.product(fa_ops.Q_TILES,
+                                                      fa_ops.HD_SPLITS)):
+            out = fa_ops._launch("fma", q, k, v, causal, window, tiling)
+            torch.cuda.synchronize()
+            assert torch.isfinite(out.float()).all()
+            torch.testing.assert_close(out.float(), ref.float(),
+                                       rtol=TOL[dtype], atol=TOL[dtype])
+            if not causal and window and Sq > Sk + window - 1:
+                dead = out[:, :, Sk + window - 1:]
+                assert torch.equal(dead, torch.zeros_like(dead))
 
 
 @pytest.mark.parametrize("case", WGMMA_CASES)

@@ -2,6 +2,8 @@
 interpret mode) on the same inputs, and the CPU dispatch of the wrappers.
 Shapes and tolerances are the reference's (tests/test_kernels.py)."""
 
+import itertools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -301,6 +303,38 @@ def test_decode_split_rules():
     assert {split_tile(hd, 2) for hd in (16, 64, 96, 112, 128, 256)} == {64}
     assert [split_tile(hd, 4) for hd in (16, 64, 96, 112, 128, 256)] == \
         [64, 16, 8, 8, 8, 4]
+
+
+def test_flash_fma_tiling_rule():
+    """The fma kernel's launch shape from the shapes only: the largest of
+    64, 32, 16 query rows a block whose grid gives each of the card's SMs a
+    block (else 16), two warps a row group under two blocks an SM and at
+    hd 256; every grid within CUDA's limits (B * H blocks on x, query tiles
+    on y), and most of the 132 SMs busy at phase 4's S = 64."""
+    tiling = fa_ops.fma_tiling
+    assert tiling(2, 15, 64, 64) == (16, 2)      # phase 4: 120 blocks
+    assert tiling(2, 32, 64, 128) == (16, 2)     # 11(a): 256 blocks
+    assert tiling(2, 15, 2048, 64) == (64, 1)    # SmolLM-360M, full length
+    assert tiling(2, 32, 2048, 128) == (64, 1)
+    assert tiling(2, 16, 2048, 256) == (64, 2)   # Gemma-7B's heads
+    assert tiling(1, 40, 100, 64) == (32, 2)     # 160 blocks of 32 rows
+    assert tiling(2, 32, 300, 112) == (64, 1)    # 320 blocks
+    assert tiling(2, 15, 64, 64, sm_count=30) == (64, 2)
+    assert tiling(1, 1, 1, 16) == (16, 2)
+    for B, H, Sq, hd in itertools.product(
+            (1, 2, 8), (1, 2, 15, 32, 64),
+            (1, 17, 64, 100, 300, 2048, 1 << 20), (16, 64, 112, 256)):
+        rows, split = tiling(B, H, Sq, hd)
+        assert (rows, split) == tiling(B, H, Sq, hd)
+        assert rows in fa_ops.Q_TILES and split in fa_ops.HD_SPLITS
+        blocks = B * H * -(-Sq // rows)
+        assert -(-Sq // rows) <= 65535 and B * H < 2 ** 31
+        if rows != fa_ops.Q_TILES[-1]:
+            assert blocks >= 132
+        if rows != fa_ops.Q_TILES[0]:     # a taller tile leaves SMs idle
+            assert B * H * -(-Sq // (2 * rows)) < 132
+        assert split == (2 if blocks < 264 or hd == 256 else 1)
+    assert 2 * 15 * -(-64 // tiling(2, 15, 64, 64)[0]) >= 0.9 * 132
 
 
 # the head dims the wgmma kernel took over from the FMA kernel in bf16
