@@ -35,6 +35,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..dist.sharding import psum, tp_enter, tp_group
+from ..obs import spans
 from .config import ModelConfig
 from .quant import is_quantized, wcast
 
@@ -163,6 +164,7 @@ def _check_attn_impl(cfg: ModelConfig) -> None:
             f"{ATTN_IMPLS}")
 
 
+@spans.traced("attention")
 def attention(params, x: torch.Tensor, cfg: ModelConfig,
               positions: torch.Tensor, window: int = 0) -> torch.Tensor:
     """Causal self-attention over the full sequence (train / prefill); on
@@ -292,6 +294,7 @@ def _attention_chunked(q, k, v, positions, *, window: int = 0,
     return (acc / denom).to(q.dtype)
 
 
+@spans.traced("attention_decode")
 def attention_decode(params, x: torch.Tensor, cfg: ModelConfig,
                      k_cache: torch.Tensor, v_cache: torch.Tensor,
                      pos: torch.Tensor, window: int = 0):

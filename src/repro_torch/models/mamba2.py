@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from ..dist.sharding import psum_shared, tp_enter, tp_group
+from ..obs import spans
 from .config import ModelConfig
 from .layers import (_tp_out, dense_init, init_rmsnorm, linear, pshard,
                      rms_norm)
@@ -141,6 +142,7 @@ def ssd_chunked(x, dt, A, B, C, chunk: int):
     return y, carry
 
 
+@spans.traced("mamba2_block")
 def mamba2_block(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Full Mamba2 block (train / prefill).  x: (B,S,D) -> (B,S,D); on
     this rank's heads when `params` are TP-split."""
@@ -217,6 +219,7 @@ def init_ssm_cache(cfg: ModelConfig, batch: int, dtype, device,
     }
 
 
+@spans.traced("mamba2_decode")
 def mamba2_decode(params, x: torch.Tensor, cache: dict, cfg: ModelConfig):
     """One-token step.  x: (B,1,D); cache: {'state','conv'} of one layer.
     Returns (out (B,1,D), new cache): the state is updated in f32 and

@@ -30,6 +30,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from ..device import resolve
 from ..dist.context import current_ctx
 from ..dist.sharding import psum, tp_enter, tp_gather, tp_group
+from ..obs import spans
 from ..tree import tree_map
 from .config import ModelConfig
 from .layers import (attention, attention_decode, embed_init, init_attention,
@@ -154,6 +155,7 @@ def _use(params, name: str, cfg: ModelConfig, index=None):
     return ctx.materialize(params[name], name, cfg, index)
 
 
+@spans.traced("unembed")
 def _unembed(params, cfg: ModelConfig, h: torch.Tensor):
     """(logits in the model dtype (the reference's einsum), not yet f32;
     the TP group when they are this rank's (…, V/n) block of the vocab,
@@ -346,6 +348,7 @@ def loss_fn(params: dict, batch: dict, cfg: ModelConfig):
                   "tokens": denom}
 
 
+@spans.traced("model.prefill")
 def prefill(params: dict, batch: dict, cfg: ModelConfig, max_seq: int):
     """Last-token logits of the full-prompt forward (the reference's
     `prefill`, which leaves the KV cache to the serving engine); vocab
@@ -386,6 +389,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
     return cache
 
 
+@spans.traced("model.decode_step")
 def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
                 cfg: ModelConfig):
     """One-token decode.  tokens: (B, 1) integer (or (B,1,D) frames for

@@ -34,6 +34,7 @@ import torch.nn.functional as F
 
 from ..dist.context import current_ctx
 from ..dist.sharding import pmean, psum, tp_enter, tp_group, tp_slice
+from ..obs import spans
 from .config import ModelConfig
 from .layers import dense_init, init_mlp, mlp, pshard
 from .quant import is_quantized, wcast
@@ -106,7 +107,12 @@ def _dispatch_tables(expert_idx, gate_vals, T: int, E: int, K: int, C: int,
     one winning: when expert E-1 overflows, its kept token at slot C-1 is
     overwritten and dropped too.  The port writes only the kept slots,
     each once, and applies that rule explicitly, so the tables are the
-    same on every device and deterministic on the card."""
+    same on every device and deterministic on the card.
+
+    Counted (`obs.spans`): `moe.routed` the T * K entries and `moe.rows`
+    the E * Cb rows the expert GEMMs run.  The entries kept follow from
+    the routes and C alone, so they are left to whoever records the
+    routes: counting them here would add device work to the step."""
     flat_e = expert_idx.reshape(-1)                           # (T*K,)
     order = torch.sort(flat_e, stable=True).indices           # by expert
     sorted_e = flat_e[order]
@@ -129,6 +135,9 @@ def _dispatch_tables(expert_idx, gate_vals, T: int, E: int, K: int, C: int,
     # write of the pad
     dst = torch.where(last_overflowed & (sorted_e == E - 1) & (gpos == C - 1),
                       E * Cb, dst)
+    if spans.ON:
+        spans.add("moe.routed", T * K)
+        spans.add("moe.rows", E * Cb)
     # dropped entries all land in the scratch element E*Cb, cut off below
     buf = torch.full((E * Cb + 1,), T, dtype=torch.int32,
                      device=flat_e.device)
@@ -166,6 +175,7 @@ def _combine(ye: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
     return y
 
 
+@spans.traced("moe_ffn")
 def moe_ffn(params, x: torch.Tensor, cfg: ModelConfig):
     """x: (B, S, D) -> (y (B, S, D), aux 0-d f32).  Dispatch impl per
     cfg.moe_impl."""

@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import torch
 
+from ..obs import spans
+
 
 def quantize_weight(w: torch.Tensor) -> dict:
     """Per-output-channel absmax int8: the scale reduces only the
@@ -33,6 +35,7 @@ def is_quantized(w) -> bool:
     return isinstance(w, dict) and "q" in w and "s" in w
 
 
+@spans.traced("wcast")
 def wcast(w, dtype: torch.dtype) -> torch.Tensor:
     """Weight fetch: dequantize int8 weights or cast dense ones.  Both
     factors are cast to `dtype` before the product, as the reference

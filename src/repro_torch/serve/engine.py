@@ -22,6 +22,7 @@ from ..convert import to_tensor
 from ..device import resolve
 from ..models import decode_step, init_cache
 from ..models.config import ModelConfig
+from ..obs import spans
 from ..tree import tree_leaves_with_path, tree_unflatten
 
 
@@ -86,16 +87,30 @@ class ServingEngine:
                 toks[i, 0] = req.output[-1]
         return torch.from_numpy(toks).to(self.device)
 
+    @spans.traced("engine.step")
     def step_batch(self) -> int:
-        """One lockstep decode step across all slots.  Returns #active."""
+        """One lockstep decode step across all slots.  Returns #active.
+
+        Traced (`obs.spans`) as `engine.step` around `model.decode_step`
+        and `engine.sync` (the argmax and its copy to the host, which
+        drains the stream); counted as `engine.steps`, `engine.slot_steps`
+        (occupied slots) and `engine.prompt_slot_steps` (slots fed a
+        prompt token)."""
         self._admit()
         active = sum(r is not None for r in self.slot_req)
         if active == 0:
             return 0
+        if spans.ON:
+            spans.add("engine.steps", 1)
+            spans.add("engine.slot_steps", active)
+            spans.add("engine.prompt_slot_steps", sum(
+                int(self.slot_pos[i]) < len(r.prompt)
+                for i, r in enumerate(self.slot_req) if r is not None))
         logits, self.cache = decode_step(self.params, self.cache,
                                          self._gather_tokens(), self.cfg)
-        # first index among ties, as jnp.argmax
-        nxt = torch.argmax(logits, dim=-1).cpu().numpy()
+        with spans.span("engine.sync"):
+            # first index among ties, as jnp.argmax
+            nxt = torch.argmax(logits, dim=-1).cpu().numpy()
         for i, req in enumerate(self.slot_req):
             if req is None:
                 continue
