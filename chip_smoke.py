@@ -6,8 +6,8 @@
 Phases, each printing its own lines; any failure raises and exits non-zero:
   1. device: the card's name, and its name and power limit from nvidia-smi;
   2. build: every CUDA source in src/repro_torch/csrc (decode_attention,
-     flash_attention, flash_attention_wgmma, ssd_scan, ssd_scan_tc), one
-     nvcc each, started together;
+     flash_attention, flash_attention_wgmma, ssd_scan, ssd_scan_tc,
+     w8a16_gemm), one nvcc each, started together;
   3. each kernel variant against its plain PyTorch version on the card,
      over the reference's test shapes and the shapes of SmolLM-360M,
      DeepSeek-Coder-33B, Mamba2-2.7B and Zamba2-7B, and a TP-16 rank's
@@ -20,7 +20,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      and bf16; each case runs on the variant that `ops.variant` picks for
      it (flash:
      wgmma for bf16 at hd 64/96/112/128/256, fma for f32 and for bf16 at
-     hd 16/32; ssd_scan: tc for bf16, fma for f32);
+     hd 16/32; ssd_scan: tc for bf16, fma for f32); and the W8A16 GEMM
+     at every int8 matmul shape of the configs (1 to 64 rows) against the
+     f32 product, each call repeated bit for bit, and at the benchmark's
+     Phi-3.5-MoE serve-chat shapes no less accurate than wcast + matmul;
   4. SmolLM-360M at full width in f32: token-by-token decode_step logits
      (decode kernel) against the forward pass (flash fma kernel), 2e-3;
      then a B=2 x 2048 f32 prefill at full width and depth through the
@@ -44,7 +47,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      split fewer and more than its rule picks; flash fma in f32 at
      B=2, S=2048 at every head dim a config uses (FLASH_F32_LONG); every
      kernel at phase 3's TP-16 rank shapes in bf16; flash wgmma at phase
-     15's three shapes and ssd_scan tc at its Zamba2-7B shape.  `ms`,
+     15's three shapes and ssd_scan tc at its Zamba2-7B shape; the W8A16
+     GEMM at serve-chat's four shapes (experts up and down, wq/wo,
+     wk/wv), its weights cycled past the L2, against its byte bound,
+     wcast + matmul and torch._weight_int8pack_mm.  `ms`,
      `plain_ms` and `library_ms` are device time per call: `call_ms`
      (CUDA-event time over back-to-back calls) where the calls kept the
      device busy, else the kernels' durations from torch.profiler, since
@@ -92,7 +98,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      against the eager decode (2e-4); (b) Phi-3.5-MoE at full width and
      full depth with int8 weights (`init_quantized_params`, one layer at
      a time) and bf16 activations: its weight bytes against bf16's,
-     phase 5's 16 requests served (8 slots, max_seq 512), one step from
+     phase 5's 16 requests served (8 slots, max_seq 512; 7 W8A16 GEMMs
+     and one decode a layer a step, counted), one step from
      the served cache against the eager path (0.1 of the largest logit),
      then the int8 wk/wv codes and scales and the f32 router of all 32
      layers (new draws) committed to the checkpoint store and taken in
@@ -191,7 +198,8 @@ prefill path.  The launch
 counters are zeroed just before each and read just after it (phases 13
 and 14(d): in each rank's process, summed by the parent); every kernel
 variant of a serving path must have launched there, decode_attention on
-the store path's engine, decode and both flash variants on the moe path,
+the store path's engine, decode, both flash variants and the W8A16 GEMM
+on the moe path,
 flash fma on the dist path, flash wgmma, decode and ssd_scan tc on the
 launch path, flash wgmma and ssd_scan tc (and no flash fma) on the
 prefill path, and none on
@@ -248,6 +256,9 @@ from repro_torch.kernels.decode_attention.ref import \
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref  # noqa: E402
+from repro_torch.kernels.w8a16 import ops as w8_ops  # noqa: E402
+from repro_torch.kernels.w8a16.ref import iterations as w8_ref_iterations  # noqa: E402,E501
+from repro_torch.kernels.w8a16.ref import w8a16_ref  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import roofline  # noqa: E402
 from repro_torch.launch.hlo import CollectiveInventory  # noqa: E402
@@ -264,7 +275,8 @@ from repro_torch.models.mamba2 import (init_mamba2, mamba2_block,  # noqa
                                        mamba2_gated, mamba2_out)
 from repro_torch.models.model import hybrid_attn_mask  # noqa: E402
 from repro_torch.models.model import init_quantized_params  # noqa: E402
-from repro_torch.models.quant import is_quantized, quantize_weight  # noqa
+from repro_torch.models.quant import (_QUANT_SUFFIXES,  # noqa: E402
+                                     is_quantized, quantize_weight)
 from repro_torch.serve.engine import (Request, ServeConfig,  # noqa: E402
                                       ServingEngine)
 from repro_torch.train.optim import OptimizerConfig  # noqa: E402
@@ -783,6 +795,7 @@ def zero_launches() -> None:
     da_ops.zero_launches()
     fa_ops.zero_launches()
     ssd_ops.zero_launches()
+    w8_ops.zero_launches()
 
 
 def launch_counts() -> dict:
@@ -790,7 +803,8 @@ def launch_counts() -> dict:
     ...) since the last zero_launches."""
     got = {}
     for name, mod in (("decode_attention", da_ops),
-                      ("flash_attention", fa_ops), ("ssd_scan", ssd_ops)):
+                      ("flash_attention", fa_ops), ("ssd_scan", ssd_ops),
+                      ("w8a16_gemm", w8_ops)):
         for var, n in mod.launches_by_variant.items():
             got[f"{name}.{var}"] = n
         if sum(mod.launches_by_variant.values()) != mod.launches:
@@ -1244,6 +1258,174 @@ def tp16_timings(device) -> dict:
         out[key] = time_ssd(case, bf16, device, "tc")
         log("timing", f"ssd_scan tc bf16 (b,s,h,p,n,chunk)={case[:6]} (a "
             f"TP-16 rank, three launches): {out[key]}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the W8A16 GEMM: phase 3's check, phase 8's timing
+# ---------------------------------------------------------------------------
+
+# rows a matrix every int8 matmul shape is checked at: one, serving's
+# experts (5), one 8-row tile (16) and a row past it, the projections
+# (32), the kernel's limit
+W8A16_ROWS = (1, 5, 16, 17, 32, 64)
+# Phi-3.5-MoE's decode step at the benchmark's serve-chat, 32 slots: the
+# experts at C = int(1.25 * 32 * 2 / 16) = 5 rows each, the projections
+# at 32; (E, M, K, N), E = 0 for a 2-D weight
+W8A16_SERVE = {"experts up": (16, 5, 4096, 6400),
+               "experts down": (16, 5, 6400, 4096),
+               "wq, wo": (0, 32, 4096, 4096),
+               "wk, wv": (0, 32, 4096, 1024)}
+# each timed call reads a weight the last calls did not: copies enough to
+# pass the 50 MB L2 several times over, as a decode step's 42 GB of
+# weights do
+W8A16_COLD_BYTES = 256 << 20
+
+
+def int8_matmul_shapes() -> list:
+    """(K, N) of every int8 matmul weight of the configured archs, from
+    their shape-only trees."""
+    found = set()
+
+    def walk(node, name=""):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, k)
+        elif name in _QUANT_SUFFIXES and node.ndim >= 2:
+            found.add(tuple(node.shape[-2:]))
+    for arch in list_archs():
+        walk(init_params(get_config(arch), device="meta"))
+    return sorted(found)
+
+
+def w8a16_inputs(E, M, K, N, device, seed=0):
+    """(x bf16, int8 weight {"q", "s"}): E matrices, or one 2-D weight for
+    E = 0; the weight drawn at std 1/sqrt(K) and quantized as the model's
+    are."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    lead = (E,) if E else ()
+    w = quantize_weight(torch.randn(lead + (K, N), generator=gen,
+                                    device=device) * K ** -0.5)
+    x = torch.randn(lead + (M, K), generator=gen, device=device
+                    ).to(torch.bfloat16)
+    return x, w
+
+
+def w8a16_f32(x, w) -> torch.Tensor:
+    """The f32 product x @ (q * s) the kernel and the plain path are held
+    to."""
+    return x.float() @ (w["q"].float() * w["s"][..., None, :])
+
+
+def w8a16_errors(x, w) -> tuple[float, float]:
+    """(the kernel's, the plain path's) max |y - f32 product| / max |f32
+    product|; the kernel's two calls must agree bit for bit."""
+    y = w8_ops.w8a16_matmul(x, w)
+    again = w8_ops.w8a16_matmul(x, w)
+    torch.cuda.synchronize()
+    if not torch.equal(y, again):
+        raise AssertionError(f"w8a16 x{tuple(x.shape)} q"
+                             f"{tuple(w['q'].shape)}: two calls differ")
+    ref = w8a16_f32(x, w)
+    scale = float(ref.abs().max())
+    return (float((y.float() - ref).abs().max()) / scale,
+            float((w8a16_ref(x, w).float() - ref).abs().max()) / scale)
+
+
+def check_w8a16(device) -> dict:
+    """Phase 3 for the W8A16 GEMM: every int8 matmul shape of the configs
+    at W8A16_ROWS rows, 2-D, against the f32 product (TOL["bf16"] of its
+    largest entry), each call repeated bit for bit; serve-chat's four
+    shapes, no less accurate than the plain path (wcast + matmul)."""
+    out = {}
+    for K, N in int8_matmul_shapes():
+        worst = 0.0
+        _, w = w8a16_inputs(0, 1, K, N, device)
+        for i, M in enumerate(W8A16_ROWS):
+            x = w8a16_inputs(0, M, K, 16, device, seed=i)[0]
+            err, _ = w8a16_errors(x, w)
+            if err > TOL["bf16"]:
+                raise AssertionError(f"w8a16 M={M} K={K} N={N}: relative "
+                                     f"{err}")
+            worst = max(worst, err)
+        out[f"{K}x{N}"] = worst
+        free()
+    log("kernel", f"w8a16_gemm mma bf16 x int8: every int8 matmul shape "
+        f"(K x N) of the configs at rows {W8A16_ROWS}, against the f32 "
+        f"product, max |diff| / max |ref| (limit {TOL['bf16']}; two calls "
+        f"equal bit for bit): {out}")
+    for name, (E, M, K, N) in W8A16_SERVE.items():
+        x, w = w8a16_inputs(E, M, K, N, device, seed=7)
+        err, plain = w8a16_errors(x, w)
+        if err > plain:
+            raise AssertionError(f"w8a16 {name}: relative {err} against "
+                                 f"the plain path's {plain}")
+        out[name] = dict(rel=err, plain_rel=plain)
+        log("kernel", f"w8a16_gemm mma {name} (E,M,K,N)={(E, M, K, N)}: "
+            f"max |diff| / max |f32 product| {err:.4g}, the plain path's "
+            f"(wcast + matmul) {plain:.4g}; two calls equal bit for bit")
+        free()
+    x, w = w8a16_inputs(0, 65, 256, 128, device)
+    try:
+        w8_ops.w8a16_matmul(x, w)
+    except ValueError:
+        return out
+    raise AssertionError("w8a16: 65 rows a matrix did not raise")
+
+
+def time_w8a16(name, device, blocks=None) -> dict:
+    """The W8A16 GEMM at one of serve-chat's shapes (W8A16_SERVE): device
+    ms a call over weights cycled past the L2 (W8A16_COLD_BYTES), the
+    bound (the int8 weight, scales, x and y once at 3.35 TB/s), the plain
+    path (wcast + matmul) and, as a yardstick the port never calls,
+    `torch._weight_int8pack_mm` on a transposed copy (one call a matrix)
+    where it runs on the card; `blocks` sets the kernel's grid."""
+    E, M, K, N = W8A16_SERVE[name]
+    n_mat = max(E, 1)
+    if blocks is not None:
+        blocks = min(blocks, w8_ref_iterations(n_mat, K, N)[2])
+    copies = max(2, -(-W8A16_COLD_BYTES // (n_mat * K * N)))
+    x, w = w8a16_inputs(E, M, K, N, device, seed=1)
+    ws = [w] + [w8a16_inputs(E, M, K, N, device, seed=2 + i)[1]
+                for i in range(copies - 1)]
+    turn = itertools.cycle(range(copies))
+
+    def kernel():
+        q = ws[next(turn)]
+        return w8_ops._launch(x, q["q"], q["s"], blocks)
+    ms, call_ms, _ = timed(kernel, 20 * copies)
+    plain = device_ms(lambda: w8a16_ref(x, ws[next(turn)]), 4 * copies)
+    library = None
+    try:
+        packed = [(q["q"].transpose(-1, -2).contiguous(),
+                   q["s"].to(torch.bfloat16)) for q in ws]
+        x2 = x.reshape(n_mat, M, K)
+
+        def lib():
+            qt, sc = packed[next(turn)]
+            for e in range(n_mat):
+                torch._weight_int8pack_mm(x2[e], qt.reshape(n_mat, N, K)[e],
+                                          sc.reshape(n_mat, N)[e])
+        library = device_ms(lib, 4 * copies)
+    except (RuntimeError, NotImplementedError, AttributeError) as e:
+        log("timing", f"w8a16 {name}: torch._weight_int8pack_mm does not "
+            f"run here ({type(e).__name__}: {str(e).splitlines()[0][:120]})")
+    nbytes = n_mat * (K * N + 4 * N + 2 * M * K + 2 * M * N)
+    b_ms, b_by = bound(nbytes, 2 * n_mat * M * K * N, torch.bfloat16)
+    grid = blocks or w8_ops._grid(device, n_mat, M, K, N)
+    del ws
+    free()
+    return dict(ms=ms, call_ms=call_ms, bound_ms=b_ms, bound_by=b_by,
+                share_of_bound=b_ms / ms, plain_ms=plain,
+                library_ms=library, blocks=grid, copies=copies)
+
+
+def w8a16_timings(device) -> dict:
+    out = {}
+    for name in W8A16_SERVE:
+        out[name] = time_w8a16(name, device)
+        log("timing", f"w8a16_gemm mma {name} (E,M,K,N)="
+            f"{W8A16_SERVE[name]}: {out[name]}")
     return out
 
 
@@ -1909,6 +2091,7 @@ def dense_bytes(tree) -> int:
 
 def launches_now() -> dict:
     return {"decode_attention.split": da_ops.launches_by_variant["split"],
+            "w8a16_gemm.mma": w8_ops.launches_by_variant["mma"],
             **{f"flash_attention.{k}": v
                for k, v in fa_ops.launches_by_variant.items()}}
 
@@ -2178,9 +2361,12 @@ def phi_int8_path(device) -> dict:
     eng, wall, step_s = serve(cfg, params, ServeConfig(slots=8, max_seq=512),
                               requests, device)
     launched = launches_since(before)
-    if launched != {"decode_attention.split": cfg.num_layers * len(step_s)}:
+    want = {"decode_attention.split": cfg.num_layers * len(step_s),
+            "w8a16_gemm.mma": 7 * cfg.num_layers * len(step_s)}
+    if launched != want:
         raise AssertionError(f"serving launched {launched}, not "
-                             f"{cfg.num_layers} decodes a step")
+                             f"{cfg.num_layers} decodes and "
+                             f"{7 * cfg.num_layers} W8A16 GEMMs a step")
     out = report_serving(PHI, eng, requests, wall, step_s, nbytes,
                          cfg.vocab_size, what="full width and depth, int8 "
                          "weights, bf16 activations")
@@ -2192,7 +2378,9 @@ def phi_int8_path(device) -> dict:
     if rel > DECODE_REL_LIMIT:
         raise AssertionError(f"11(b) decode vs eager: relative {rel}")
     log("moe", f"(b) {launched['decode_attention.split']} decode launches "
-        f"({cfg.num_layers} x {len(step_s)} steps); one more step from the "
+        f"({cfg.num_layers} x {len(step_s)} steps) and "
+        f"{launched['w8a16_gemm.mma']} W8A16 GEMMs (wq, wk, wv, wo and the "
+        f"three expert stacks a layer); one more step from the "
         f"served cache (pos {int(eng.cache['pos'])}) against the eager path "
         f"on the same int8 weights (routes pinned; {flips} would have "
         f"flipped): max |diff| / max |logit| {rel:.3g} (limit "
@@ -3119,6 +3307,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     check_kernels(device)
+    w8_check = check_w8a16(device)
     log("kernel", f"phase 3 took {time.perf_counter() - t0:.1f} s")
 
     # -- the main paths: the counters are zeroed before each, read after ---
@@ -3173,6 +3362,7 @@ def main() -> int:
             (1, 56, 8, 2048, 2048, 128, True, 0), bf16, device, "wgmma",
             iters=20)))
     moe_tim = moe_attention_timings(device)
+    w8_tim = w8a16_timings(device)
     tp16 = tp16_timings(device)
     wide_tim = {"ssd": time_ssd(ZAMBA_PREFILL, bf16, device, "tc")}
     log("timing", f"ssd_scan tc bf16 (b,s,h,p,n,chunk)={ZAMBA_PREFILL[:6]} "
@@ -3220,7 +3410,8 @@ def main() -> int:
     moe = moe_path(device)
     paths["moe"] = read_launches("moe", ("decode_attention.split",
                                          "flash_attention.wgmma",
-                                         "flash_attention.fma"))
+                                         "flash_attention.fma",
+                                         "w8a16_gemm.mma"))
     log("moe", f"phase 11 took {time.perf_counter() - t0:.1f} s: {moe}")
     free()
 
@@ -3330,6 +3521,13 @@ def main() -> int:
     ssd_vars["tc"]["tp16_mamba2"] = dict(
         tp16["ssd_mamba2"], launches=shares["launches"]["ssd_scan.tc"])
     ssd_vars["tc"]["tp16_zamba2"] = tp16["ssd_zamba2"]
+    w8_vars = {"mma": variant("w8a16_gemm", "mma", "w8a16_gemm.cu",
+                              "bf16 x int8 E=16 M=5 K=4096 N=6400 "
+                              "(serve-chat's experts up)",
+                              w8_tim["experts up"])}
+    for name, timing in w8_tim.items():
+        w8_vars["mma"][name] = timing
+    w8_vars["mma"]["check"] = w8_check
     kernels = [
         dict(name="decode_attention", route="cuda",
              source="src/repro_torch/csrc/decode_attention.cu",
@@ -3346,6 +3544,12 @@ def main() -> int:
              replaces="src/repro/kernels/ssd_scan/kernel.py:76",
              launches=sum(v["launches"] for v in ssd_vars.values()), **ssd,
              variants=ssd_vars),
+        dict(name="w8a16_gemm", route="cuda",
+             source="src/repro_torch/csrc/w8a16_gemm.cu",
+             replaces="none (models/quant.py::wcast + matmul at decode "
+                      "shapes)",
+             launches=launches["w8a16_gemm.mma"], **w8_tim["experts up"],
+             variants=w8_vars),
     ]
     log("done", f"chip_smoke took {time.perf_counter() - t_start:.1f} s "
         "after start-up")

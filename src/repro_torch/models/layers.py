@@ -37,7 +37,7 @@ import torch.nn.functional as F
 from ..dist.sharding import psum, tp_enter, tp_group
 from ..obs import spans
 from .config import ModelConfig
-from .quant import is_quantized, wcast
+from .quant import is_quantized, kernel_matmul, takes_kernel, wcast
 
 # ---------------------------------------------------------------------------
 # activation sharding hook (installed by repro_torch.dist.sharding)
@@ -111,8 +111,11 @@ def rms_norm(params, x: torch.Tensor, eps: float,
 
 
 def linear(w, x: torch.Tensor) -> torch.Tensor:
-    """x @ w for a dense or an int8 weight (dequantized at every call, as
-    the reference's `linear`)."""
+    """x @ w for a dense or an int8 weight: at decode shapes on the card
+    an int8 weight goes through the W8A16 kernel (`quant.takes_kernel`),
+    else it is dequantized at every call, as the reference's `linear`."""
+    if takes_kernel(w, x):
+        return kernel_matmul(x, w)
     return x @ wcast(w, x.dtype)
 
 

@@ -37,7 +37,7 @@ from ..dist.sharding import pmean, psum, tp_enter, tp_group, tp_slice
 from ..obs import spans
 from .config import ModelConfig
 from .layers import dense_init, init_mlp, mlp, pshard
-from .quant import is_quantized, wcast
+from .quant import is_quantized, kernel_matmul, takes_kernel, wcast
 
 
 def init_moe(gen, cfg: ModelConfig, dtype, device="cpu"):
@@ -149,14 +149,24 @@ def _dispatch_tables(expert_idx, gate_vals, T: int, E: int, K: int, C: int,
             slot)
 
 
+def _expert_matmul(x: torch.Tensor, w) -> torch.Tensor:
+    """(E, C, D_in) @ an expert stack (E, D_in, D_out), dense or int8: at
+    decode shapes on the card an int8 stack goes through the W8A16 kernel
+    (`quant.takes_kernel`), else it is dequantized at the call."""
+    if takes_kernel(w, x):
+        return kernel_matmul(x, w)
+    return torch.bmm(x, wcast(w, x.dtype))
+
+
 def _experts(xe, wg, wu, wd, activation: str) -> torch.Tensor:
-    """The batched per-expert gated MLP: (E, C, D) -> (E, C, D)."""
-    g = torch.bmm(xe, wg)
-    u = torch.bmm(xe, wu)
+    """The batched per-expert gated MLP: (E, C, D) -> (E, C, D); the
+    weights are the expert stacks as stored, dense or int8."""
+    g = _expert_matmul(xe, wg)
+    u = _expert_matmul(xe, wu)
     # jax.nn.gelu defaults to the tanh approximation
     act = F.gelu(g, approximate="tanh") if activation == "geglu" \
         else F.silu(g)
-    return torch.bmm(pshard(act * u, "moe_ecf"), wd)
+    return _expert_matmul(pshard(act * u, "moe_ecf"), wd)
 
 
 def _combine(ye: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
@@ -230,9 +240,8 @@ def _moe_gspmd(params, x: torch.Tensor, cfg: ModelConfig):
     # gather -> (E, C, D); the pad id T reads a zero row
     xe = torch.cat([xin, xin.new_zeros((1, D))])[buf]
     xe = pshard(xe, "moe_ecd")
-    ye = _experts(xe, wcast(params["w_gate"], xe.dtype),
-                  wcast(params["w_up"], xe.dtype),
-                  wcast(params["w_down"], xe.dtype), cfg.activation)
+    ye = _experts(xe, params["w_gate"], params["w_up"], params["w_down"],
+                  cfg.activation)
     ye = ye * gbuf[..., None].to(ye.dtype)
     y = _combine(ye, slot)
     if tp is not None:
@@ -303,8 +312,7 @@ def _moe_shard_map(params, x: torch.Tensor, cfg: ModelConfig, ctx):
     # experts' blocks from every rank in rank order: (E_l, C·n_ep, D)
     xe = _all_to_all(xe, ep_group)
     xe = xe.reshape(n_ep, El, C, D).transpose(0, 1).reshape(El, n_ep * C, D)
-    ye = _experts(xe, wg.to(xe.dtype), wu.to(xe.dtype), wd.to(xe.dtype),
-                  cfg.activation)
+    ye = _experts(xe, wg, wu, wd, cfg.activation)
     # return trip; outputs are partial over TP (F was sliced)
     ye = ye.reshape(El, n_ep, C, D).transpose(0, 1)
     ye = _all_to_all(ye, ep_group).reshape(E, C, D)

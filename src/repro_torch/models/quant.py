@@ -8,14 +8,21 @@ keep the matmul error small; embeddings, norms, the router and the SSM
 scalars stay dense.
 
 A quantized weight is the dict {"q": int8 (..., in, out), "s": f32
-(..., out)}; `wcast` dequantizes it at every use, so every matmul site
-takes both representations.
+(..., out)}, and every matmul site takes both representations.  Each
+site picks its path with `takes_kernel`, from shape, dtype and device
+alone: an int8 weight meeting a bf16 activation on the card at decode
+shapes (at most 64 rows a matrix) goes through the hand-written W8A16
+kernel (`kernel_matmul`, `kernels/w8a16`), which reads the int8 weight
+once and scales the f32 accumulator; everything else (dense weights, CPU
+tensors, prefill-sized rows, f32 activations) computes `x @ wcast(w,
+x.dtype)`, with `wcast` dequantizing the weight at every use.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..kernels.w8a16 import ops as w8a16_ops
 from ..obs import spans
 
 
@@ -43,6 +50,33 @@ def wcast(w, dtype: torch.dtype) -> torch.Tensor:
     if is_quantized(w):
         return w["q"].to(dtype) * w["s"][..., None, :].to(dtype)
     return w.to(dtype)
+
+
+def takes_kernel(w, x: torch.Tensor) -> bool:
+    """The path of `x @ w` at a matmul site: True for the W8A16 kernel (an
+    int8 weight, a bf16 activation on a CUDA device, at most
+    `w8a16_ops.MAX_ROWS` rows a matrix, a weight shape the kernel takes),
+    False for `x @ wcast(w, x.dtype)`.  x is (..., K) against a (K, N)
+    weight, or (E, M, K) against E matrices.  With the tracer on, each
+    int8 matmul is counted under its path: `quant.kernel_calls`,
+    `quant.dequant_calls`."""
+    if not is_quantized(w):
+        return False
+    q = w["q"]
+    K, N = q.shape[-2], q.shape[-1]
+    rows = x.numel() // max(1, K * q.shape[:-2].numel())
+    kernel = (x.is_cuda and x.dtype == torch.bfloat16
+              and w8a16_ops.takes(rows, K, N))
+    if spans.ON:
+        spans.add("quant.kernel_calls" if kernel else "quant.dequant_calls",
+                  1)
+    return kernel
+
+
+def kernel_matmul(x: torch.Tensor, w: dict) -> torch.Tensor:
+    """x @ w on the W8A16 kernel, for the calls `takes_kernel` sends it:
+    x (..., K) against a 2-D weight, or (E, M, K) against E matrices."""
+    return w8a16_ops.w8a16_matmul(x.contiguous(), w)
 
 
 _QUANT_SUFFIXES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",

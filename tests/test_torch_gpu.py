@@ -10,11 +10,13 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import smoke_config
+from repro_torch.configs import get_config, smoke_config
 from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.kernels.w8a16 import ops as w8_ops
+from repro_torch.kernels.w8a16.ref import w8a16_ref
 from repro_torch.models import (decode_step, forward, init_cache, init_params,
                                 prefill)
 from repro_torch.launch.shapes import make_batch
@@ -23,10 +25,13 @@ from repro_torch.serve.engine import Request, ServeConfig, ServingEngine
 from repro_torch.train.step import loss_and_grads
 from repro_torch.workload.generators import OpStream, WorkloadSpec
 from repro_torch.models.moe import init_moe
+from repro_torch.models.quant import quantize_weight
+from repro_torch.obs import spans
 from torch_dist_workers import gpu_ep_moe, gpu_gpipe, gpu_sharded, run_ranks
 from torch_stream_checks import (STREAM_CHECKS, TRANSFORM_CASES,
                                  assert_transforms_equal, batch_draws,
                                  transform_on)
+from torch_w8a16_cases import INT8_MATMUL_SHAPES, ROWS, SERVE_CHAT
 
 pytestmark = pytest.mark.gpu
 
@@ -498,6 +503,121 @@ def test_engine_tokens_equal_with_kernels_and_plain(cuda):
         assert int(eng.cache["pos"]) > 24         # past the cache end
         outs.append({r: q.output for r, q in eng.finished.items()})
     assert outs[0] == outs[1]
+
+
+# ---------------------------------------------------------------------------
+# the W8A16 GEMM
+# ---------------------------------------------------------------------------
+
+
+def _w8a16_inputs(lead, M, K, N, device, seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    w = quantize_weight(torch.randn(lead + (K, N), generator=gen,
+                                    device=device) * K ** -0.5)
+    x = torch.randn(lead + (M, K), generator=gen, device=device
+                    ).to(torch.bfloat16)
+    return x, w
+
+
+def _f32_product(x, w):
+    return x.float() @ (w["q"].float() * w["s"][..., None, :])
+
+
+@pytest.mark.parametrize("name", list(SERVE_CHAT))
+def test_w8a16_kernel_at_serve_chat_shapes(cuda, name):
+    """Phi-3.5-MoE's serve-chat shapes: against the f32 product no less
+    accurate than the path it replaces (wcast + matmul), within bf16's
+    kernel tolerance of the largest entry, and two calls equal bit for
+    bit."""
+    E, M, K, N = SERVE_CHAT[name]
+    x, w = _w8a16_inputs((E,) if E else (), M, K, N, cuda)
+    before = w8_ops.launches_by_variant["mma"]
+    y = w8_ops.w8a16_matmul(x, w)
+    assert torch.equal(y, w8_ops.w8a16_matmul(x, w))
+    assert w8_ops.launches_by_variant["mma"] == before + 2
+    ref = _f32_product(x, w)
+    err = float((y.float() - ref).abs().max())
+    plain = float((w8a16_ref(x, w).float() - ref).abs().max())
+    assert y.shape == ref.shape and y.dtype == torch.bfloat16
+    assert err <= plain, (err, plain)
+    assert err <= TOL["bfloat16"] * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("K,N", INT8_MATMUL_SHAPES)
+def test_w8a16_kernel_on_every_int8_shape_of_the_configs(cuda, K, N):
+    _, w = _w8a16_inputs((), 1, K, N, cuda)
+    for i, M in enumerate(ROWS):
+        x = _w8a16_inputs((), M, K, 16, cuda, seed=i + 1)[0]
+        y = w8_ops.w8a16_matmul(x, w)
+        ref = _f32_product(x, w)
+        torch.testing.assert_close(
+            y.float(), ref, rtol=0,
+            atol=TOL["bfloat16"] * float(ref.abs().max()))
+        assert torch.equal(y, w8_ops.w8a16_matmul(x, w)), M
+
+
+def test_w8a16_kernel_on_other_cuts_and_ragged_edges(cuda):
+    """Column and k tiles cut at the edge (N % 128, K % 64 nonzero), rows
+    past one tile, and the same product over other block counts: equal
+    to the f32 product, and every cut's counters left at zero."""
+    from repro_torch.kernels.w8a16 import ref as w8_ref
+    x, w = _w8a16_inputs((3,), 17, 200, 272, cuda)
+    ref = _f32_product(x, w)
+    _, _, total = w8_ref.iterations(3, 200, 272)
+    for blocks in (1, 2, 5, 7, total):
+        y = w8_ops._launch(x, w["q"], w["s"], blocks)
+        torch.testing.assert_close(y.float(), ref, rtol=0,
+                                   atol=TOL["bfloat16"] * float(
+                                       ref.abs().max()))
+        _, counters = w8_ops._SCRATCH[x.device]
+        assert int(counters.abs().sum()) == 0
+
+
+def test_w8a16_raises_on_what_the_kernel_does_not_take(cuda):
+    x, w = _w8a16_inputs((), 65, 256, 128, cuda)
+    before = w8_ops.launches
+    with pytest.raises(ValueError, match="unsupported"):
+        w8_ops.w8a16_matmul(x, w)
+    x, w = _w8a16_inputs((), 4, 256, 24, cuda)              # N % 16
+    with pytest.raises(ValueError, match="unsupported"):
+        w8_ops.w8a16_matmul(x, w)
+    x, w = _w8a16_inputs((), 4, 256, 128, cuda)
+    with pytest.raises(TypeError):
+        w8_ops.w8a16_matmul(x.float(), w)
+    with pytest.raises(ValueError, match="contiguous"):
+        w8_ops.w8a16_matmul(x, {"q": w["q"].t().contiguous().t(),
+                                "s": w["s"]})
+    with pytest.raises(ValueError, match="bad shapes"):
+        w8_ops.w8a16_matmul(x[:, :128], w)
+    assert w8_ops.launches == before
+
+
+def test_w8a16_launches_7_a_layer_in_a_full_width_phi_decode_step(cuda):
+    """Phi-3.5-MoE at full width, 2 layers, int8, bf16, 32 slots: a decode
+    step runs its 7 int8 matmuls a layer (wq, wk, wv, wo and the three
+    expert stacks) on the kernel, counted by the launch counter and the
+    tracer; a 2 x 512 prefill (160 rows an expert) runs none there."""
+    cfg = get_config("phi3.5-moe-42b-a6.6b").scaled(
+        num_layers=2, attn_impl="pallas")
+    params = init_quantized_params(cfg, seed=0, device=cuda)
+    cache = init_cache(cfg, 32, 64, device=cuda)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (32, 1))).to(cuda)
+    before = w8_ops.launches
+    spans.enable()
+    logits, _ = decode_step(params, cache, tokens, cfg)
+    counters = spans.collect()["counters"]
+    assert torch.isfinite(logits).all()
+    assert w8_ops.launches == before + 7 * cfg.num_layers
+    assert counters["quant.kernel_calls"] == 7 * cfg.num_layers
+    assert "quant.dequant_calls" not in counters
+    spans.enable()
+    prefill(params, {"tokens": tokens.reshape(2, 16).repeat(1, 32)}, cfg,
+            512)
+    counters = spans.collect()["counters"]
+    assert w8_ops.launches == before + 7 * cfg.num_layers
+    assert counters["quant.dequant_calls"] == 7 * cfg.num_layers
+    assert "quant.kernel_calls" not in counters
 
 
 def _chip_smoke():

@@ -126,10 +126,13 @@ def test_engine_counters_count_what_it_served():
     counters = spans.collect()["counters"]
     occupied = sum(len(r.prompt) + len(r.output) - 1
                    for r in eng.finished.values())
+    # and, on CPU tensors, in_proj and out_proj dequantized a layer a step
     assert counters == {"engine.steps": eng.batches_run,
                         "engine.slot_steps": occupied,
                         "engine.prompt_slot_steps": sum(
-                            len(p) for _, p, _ in REQUESTS)}
+                            len(p) for _, p, _ in REQUESTS),
+                        "quant.dequant_calls":
+                            2 * cfg.num_layers * eng.batches_run}
 
 
 def test_collect_hands_over_once_and_empties():
